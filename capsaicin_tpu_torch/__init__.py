@@ -8,11 +8,10 @@ package's, so each counterpart is found under the same path.
 Quick start::
 
     import capsaicin_tpu_torch as cap
-    from capsaicin_tpu_torch.render.settings import RenderOptions
     from capsaicin_tpu_torch.scene import build_scene
     from capsaicin_tpu_torch.scene.procedural import cornell_box, make_camera
 
-    session = cap.create_session(1920, 1080, options=RenderOptions(gather=False))
+    session = cap.create_session(1920, 1080)  # default RenderOptions
     session.set_camera(make_camera("cornell", 1920, 1080))
     session.set_scene(build_scene(cornell_box()))
     image = session.render()  # [H,W,3] numpy, gamma-encoded

@@ -19,9 +19,17 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(device)
 
 
+def _signed(x: np.ndarray) -> np.ndarray:
+    """uint32 -> int32 with the same bits (torch's uint32 has few ops);
+    other arrays unchanged."""
+    return x.view(np.int32) if x.dtype == np.uint32 else x
+
+
 def scene_from_numpy(scene, device="cpu") -> Scene:
-    """A Scene of numpy arrays -> the same Scene of tensors on `device`."""
-    return Scene(*[_tensor(getattr(scene, f), device) for f in Scene._fields])
+    """A Scene of numpy arrays -> the same Scene of tensors on `device`.
+    Either atlas form carries over: the float32 quad atlas, or the rgba8
+    atlas (uint32 in the JAX package) as int32 of the same bits."""
+    return Scene(*[_tensor(_signed(np.array(getattr(scene, f))), device) for f in Scene._fields])
 
 
 def camera_from_numpy(camera, device="cpu") -> Camera:

@@ -8,33 +8,35 @@
 // builds its 49 taps from lane rolls.
 //
 // Bound: L2 and memory traffic. Each output pixel reads 49 taps of color
-// and geo (float4 each) and of the moments (3 floats), and writes one
-// float4.
+// and geo (four channels each) and of the moments (3 channels), and
+// writes one four-channel pixel.
 //
 // Design: one thread per pixel in 16x16 blocks over [H,W,C] buffers, taps
 // read through the read-only cache (__ldg), so that the block's
 // overlapping 22x22 footprint is served from L1/L2 rather than device
 // memory. An explicit bounds test and depth >= 1e-5 form the valid mask.
-// Built with --fmad=false.
+// Two instances: float32 storage, and bf16 storage (eaw_bf16: arithmetic
+// in float32, the output rounded to bf16). Built with --fmad=false.
 #include "eaw_common.cuh"
 
-__global__ void eaw_disocclusion_kernel(const float4* __restrict__ col,
-                                        const float4* __restrict__ geo,
-                                        const float* __restrict__ mom,
-                                        float4* __restrict__ out, int height,
+template <typename S>
+__global__ void eaw_disocclusion_kernel(const S* __restrict__ col,
+                                        const S* __restrict__ geo,
+                                        const S* __restrict__ mom,
+                                        S* __restrict__ out, int height,
                                         int width, float s_normal,
                                         float s_depth, float s_luma) {
   const int x = blockIdx.x * EAW_TILE + threadIdx.x;
   const int y = blockIdx.y * EAW_TILE + threadIdx.y;
   if (x >= width || y >= height) return;
   const int idx = y * width + x;
-  const float4 c = col[idx];
+  const float4 c = eaw_load4(col, idx);
   const float cr = fminf(c.x, EAW_FIREFLY_CLAMP);
   const float cg = fminf(c.y, EAW_FIREFLY_CLAMP);
   const float cb = fminf(c.z, EAW_FIREFLY_CLAMP);
   const float cv = c.w;
-  const float4 g = geo[idx];
-  const float hist_len = mom[3 * idx + 2];
+  const float4 g = eaw_load4(geo, idx);
+  const float hist_len = eaw_load1(mom, 3 * idx + 2);
   const float cl = eaw_lum(cr, cg, cb);
   const float s_d_base = g.w * s_depth;
 
@@ -48,9 +50,9 @@ __global__ void eaw_disocclusion_kernel(const float4* __restrict__ col,
       const int tx = x + dx;
       if (ty < 0 || ty >= height || tx < 0 || tx >= width) continue;
       const int t = ty * width + tx;
-      const float4 tg = __ldg(&geo[t]);
+      const float4 tg = eaw_load4(geo, t);
       if (!(tg.w >= 1e-5f)) continue;
-      const float4 tc = __ldg(&col[t]);
+      const float4 tc = eaw_load4(col, t);
       const float tr = fminf(tc.x, EAW_FIREFLY_CLAMP);
       const float tgr = fminf(tc.y, EAW_FIREFLY_CLAMP);
       const float tb = fminf(tc.z, EAW_FIREFLY_CLAMP);
@@ -60,8 +62,8 @@ __global__ void eaw_disocclusion_kernel(const float4* __restrict__ col,
       acc_r += w_full * tr;
       acc_g += w_full * tgr;
       acc_b += w_full * tb;
-      acc_m1 += w_full * __ldg(&mom[3 * t]);
-      acc_m2 += w_full * __ldg(&mom[3 * t + 1]);
+      acc_m1 += w_full * eaw_load1(mom, 3 * t);
+      acc_m2 += w_full * eaw_load1(mom, 3 * t + 1);
       tw += w_full;
     }
   }
@@ -82,22 +84,43 @@ __global__ void eaw_disocclusion_kernel(const float4* __restrict__ col,
       o = make_float4(acc_r * inv, acc_g * inv, acc_b * inv, f_v);
     }
   }
-  out[idx] = o;
+  eaw_store4(out, idx, o);
 }
 
-extern "C" int eaw_disocclusion(const float* col, const float* geo,
-                                const float* mom, float* out, int height,
-                                int width, float s_normal, float s_depth,
-                                float s_luma, int device, cudaStream_t stream) {
+template <typename S>
+static int launch_eaw_disocclusion(const void* col, const void* geo,
+                                   const void* mom, void* out, int height,
+                                   int width, float s_normal, float s_depth,
+                                   float s_luma, int device,
+                                   cudaStream_t stream) {
   cudaSetDevice(device);
   if (height > 0 && width > 0) {
     const dim3 block(EAW_TILE, EAW_TILE);
     const dim3 grid((width + EAW_TILE - 1) / EAW_TILE,
                     (height + EAW_TILE - 1) / EAW_TILE);
-    eaw_disocclusion_kernel<<<grid, block, 0, stream>>>(
-        reinterpret_cast<const float4*>(col), reinterpret_cast<const float4*>(geo),
-        mom, reinterpret_cast<float4*>(out), height, width, s_normal, s_depth,
-        s_luma);
+    eaw_disocclusion_kernel<S><<<grid, block, 0, stream>>>(
+        static_cast<const S*>(col), static_cast<const S*>(geo),
+        static_cast<const S*>(mom), static_cast<S*>(out), height, width,
+        s_normal, s_depth, s_luma);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int eaw_disocclusion(const void* col, const void* geo,
+                                const void* mom, void* out, int height,
+                                int width, float s_normal, float s_depth,
+                                float s_luma, int device, cudaStream_t stream) {
+  return launch_eaw_disocclusion<float>(col, geo, mom, out, height, width,
+                                        s_normal, s_depth, s_luma, device,
+                                        stream);
+}
+
+extern "C" int eaw_disocclusion_bf16(const void* col, const void* geo,
+                                     const void* mom, void* out, int height,
+                                     int width, float s_normal, float s_depth,
+                                     float s_luma, int device,
+                                     cudaStream_t stream) {
+  return launch_eaw_disocclusion<__nv_bfloat16>(col, geo, mom, out, height,
+                                                width, s_normal, s_depth,
+                                                s_luma, device, stream);
 }

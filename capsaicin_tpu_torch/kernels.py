@@ -1,15 +1,18 @@
 """Build, load and launch the package's hand-written CUDA kernels.
 
-The sources under `csrc/` are compiled with nvcc into one shared library
-with a plain C interface, at first use, into `_build/<hash of the
-sources and flags>/`. Each C entry point launches one kernel on the
-stream it is given and returns `cudaGetLastError()`. Importing this module
-needs neither nvcc nor a GPU: nothing is built until a kernel is launched
-on a CUDA tensor (or `load()` is called).
+The sources under `csrc/` are compiled with nvcc, one process per source
+and all at once, and linked into one shared library with a plain C
+interface, at first use, into `_build/<hash of the sources and flags>/`.
+Each C entry point launches one kernel on the stream it is given and
+returns `cudaGetLastError()`. Importing this module needs neither nvcc nor
+a GPU: nothing is built until a kernel is launched on a CUDA tensor (or
+`load()` is called).
 
 Every kernel is a `Kernel`: it carries its launch count, which a caller
 can reset and read to show that a run went through the kernel, and the
-name of the TPU kernel it replaces.
+name of the TPU kernel it replaces. A kernel may have one C entry point
+per storage type (the stencil kernels take float32 or bfloat16 images);
+launches of every instance count toward the one kernel.
 """
 
 from __future__ import annotations
@@ -33,8 +36,10 @@ LIB_NAME = "libcapsaicin_kernels.so"
 # plain versions; fast math would change powf/expf/sqrtf/division.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
+# the C entry point of each storage type: "<symbol><suffix>"
+STORAGE_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 vp = ctypes.c_void_p
 i32 = ctypes.c_int
@@ -68,17 +73,40 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _run(procs):
+    """Wait for every (cmd, Popen); raise with the output of the first failure."""
+    failed = None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build(path: Optional[str] = None) -> str:
-    """Compile every .cu under csrc/ into the shared library at `path`."""
+    """Compile every .cu under csrc/ (one nvcc per source, started
+    together) and link them into the shared library at `path`."""
     path = path or library_path()
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    nvcc = find_nvcc()
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    try:
+        _run(procs)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
     return path
 
@@ -94,18 +122,20 @@ class Kernel:
         self.source = source  # path in the repository
         self.replaces = replaces  # file:line of the TPU kernel
         self.launches = 0
-        self._fn = None
+        self._fns = {}
 
-    def launch(self, device: torch.device, *args):
-        """Launch on `device`'s current stream; raise if the launch failed.
-        `args` are the C arguments before the trailing (device, stream)."""
-        if self._fn is None:
-            fn = getattr(_library(), self.symbol)
+    def launch(self, device: torch.device, *args, storage: torch.dtype = torch.float32):
+        """Launch the instance for `storage` on `device`'s current stream;
+        raise if the launch failed. `args` are the C arguments before the
+        trailing (device, stream)."""
+        fn = self._fns.get(storage)
+        if fn is None:
+            fn = getattr(_library(), self.symbol + STORAGE_SUFFIX[storage])
             fn.argtypes = [*self.argtypes, i32, vp]
             fn.restype = i32
-            self._fn = fn
+            self._fns[storage] = fn
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = self._fn(*args, device.index or 0, stream)
+        err = fn(*args, device.index or 0, stream)
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with error {err}")
         self.launches += 1
@@ -149,9 +179,9 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
-               device: Optional[torch.device] = None):
+               device: Optional[torch.device] = None, align: int = 1):
     """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and
-    `shape` and `device`, where given)."""
+    `shape` and `device`, where given) whose data is `align`-byte aligned."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -162,6 +192,8 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: must be {align}-byte aligned")
 
 
 def on_cpu(t: torch.Tensor) -> bool:

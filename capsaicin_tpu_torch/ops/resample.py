@@ -22,3 +22,40 @@ def _gather_pixels(img, ix, iy):
     iy = iy.clamp(0, h - 1).long()
     flat = img.reshape(h * w, *img.shape[2:])
     return flat[iy * w + ix]
+
+
+def sample_bilinear(img, uv, dims):
+    """Bilinear fetch at UV, edge-clamped; utils.h:19-36. dims=(W,H)."""
+    xy = uv_to_xy(uv, dims) - 0.5
+    fl = torch.floor(xy)
+    ix = fl[..., 0].long()
+    iy = fl[..., 1].long()
+    wx = (xy - fl)[..., 0:1]
+    wy = (xy - fl)[..., 1:2]
+    top = _gather_pixels(img, ix, iy) * (1.0 - wx) + _gather_pixels(img, ix + 1, iy) * wx
+    bot = _gather_pixels(img, ix, iy + 1) * (1.0 - wx) + _gather_pixels(img, ix + 1, iy + 1) * wx
+    return top * (1.0 - wy) + bot * wy
+
+
+def upsample2x_bilinear(img):
+    """[h,w,C] -> [2h,2w,C]: exactly sample_bilinear(img, identity uv of
+    the doubled grid, (w,h)), including uv_to_xy's upper clamp, which makes
+    the last two output rows and columns a 0.5/0.5 blend of the last two
+    inputs. The UPSCALE2X current-color fetch of the SVGF accumulate pass
+    (temporal_accumulation.hlsl:228-232), whose sample position is always
+    the identity map: each output is 0.25/0.75 of two neighbours per axis."""
+
+    def up(a, axis):
+        n = a.shape[axis]
+        prev = torch.cat([a.narrow(axis, 0, 1), a.narrow(axis, 0, n - 1)], axis)
+        nxt = torch.cat([a.narrow(axis, 1, n - 1), a.narrow(axis, n - 1, 1)], axis)
+        even = 0.25 * prev + 0.75 * a
+        odd = 0.75 * a + 0.25 * nxt
+        shape = list(a.shape)
+        shape[axis] = 2 * n
+        out = torch.stack([even, odd], axis + 1).reshape(shape)
+        i0 = max(n - 2, 0)  # n == 1 degenerates to the single texel
+        edge = 0.5 * (a.narrow(axis, i0, 1) + a.narrow(axis, n - 1, 1))
+        return torch.cat([out.narrow(axis, 0, 2 * n - 2), edge, edge], axis)
+
+    return up(up(img, 0), 1)

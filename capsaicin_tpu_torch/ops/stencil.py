@@ -1,14 +1,24 @@
-"""Edge-aware stencil filters of the EAW denoise chain: the disocclusion
-blur (kernel K3, `csrc/eaw_disocclusion.cu`) and one a-trous stage
-(kernel K4, `csrc/eaw_stage.cu`). The torch counterpart of the chain in
-capsaicin_tpu/ops/pallas_stencil.py.
+"""Edge-aware stencil filters: the spatial gather (kernel K5,
+`csrc/spatial_gather.cu`) and the EAW denoise chain's disocclusion blur
+(K3, `csrc/eaw_disocclusion.cu`), single a-trous stage (K4,
+`csrc/eaw_stage.cu`) and fused pair of stages (K6, `csrc/eaw_pair.cu`).
+The torch counterpart of capsaicin_tpu/ops/pallas_stencil.py.
 
-Buffers are [H,W,C] float32 with channels last: color4 (r, g, b,
-variance), geo (decoded normal xyz, depth), moments (m1, m2, history
-length). A tap is valid where it lies inside the image and its depth is at
-least 1e-5. The plain versions zero-pad the image, so a pad tap has depth 0
-and the depth test alone excludes it; the kernels test the bounds
-explicitly. Both compute what the planar TPU layout computes.
+Buffers are [H,W,C] with channels last: color4 (r, g, b, variance), geo
+(decoded normal xyz, depth), moments (m1, m2, history length), the
+gather's indirect (r, g, b). A tap is valid where it lies inside the image
+and its depth is at least 1e-5. The plain versions zero-pad the image, so
+a pad tap has depth 0 and the depth test alone excludes it; the kernels
+test the bounds explicitly. Both compute what the planar TPU layout
+computes.
+
+Storage is float32, or bfloat16 under `eaw_bf16` (the TPU package's bf16
+planar storage): arithmetic is float32 either way, and every kernel and
+plain version returns its result in the storage type of its first input,
+rounded to nearest-even. The rounding points are the TPU package's: the
+inputs are rounded once when a chain packs them, every kernel's output is
+rounded, the intermediate stage inside K6 is not, and the chain's result is
+widened to float32 at the end.
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ EPS = 1e-8
 FIREFLY_CLAMP = 10.0
 SPATIAL_VARIANCE_THRESHOLD = 8.0
 _EAW_KW = (1.0, 2.0 / 3.0, 1.0 / 6.0)  # eaw_blur.hlsl:76
+EAW_TILE = 16  # csrc/eaw_common.cuh
+PAIR_SMEM_LIMIT = 48 * 1024  # K6's shared memory per block, without an opt-in
 
 K3 = K.register(K.Kernel(
     "eaw_disocclusion", "eaw_disocclusion",
@@ -37,6 +49,18 @@ K4 = K.register(K.Kernel(
     [K.vp, K.vp, K.vp, K.i32, K.i32, K.i32, K.i32, K.f32, K.f32, K.f32],
     source="capsaicin_tpu_torch/csrc/eaw_stage.cu",
     replaces="capsaicin_tpu/ops/pallas_stencil.py:218",
+))
+K5 = K.register(K.Kernel(
+    "spatial_gather", "spatial_gather",
+    [K.vp, K.vp, K.vp, K.i32, K.i32, K.f32, K.f32, K.f32],
+    source="capsaicin_tpu_torch/csrc/spatial_gather.cu",
+    replaces="capsaicin_tpu/ops/pallas_stencil.py:345",
+))
+K6 = K.register(K.Kernel(
+    "eaw_pair", "eaw_pair",
+    [K.vp, K.vp, K.vp, K.i32, K.i32, K.i32, K.i32, K.i32, K.f32, K.f32, K.f32],
+    source="capsaicin_tpu_torch/csrc/eaw_pair.cu",
+    replaces="capsaicin_tpu/ops/pallas_stencil.py:231",
 ))
 
 
@@ -60,7 +84,9 @@ def _taps(x, reach: int):
 
 def eaw_disocclusion_plain(color4, geo, moments, s_normal, s_depth, s_luma):
     """The plain version of K3 (eaw_blur.hlsl BlurDisocclusion)."""
-    col = _clamped(color4)
+    dtype = color4.dtype
+    col = _clamped(color4.float())
+    geo, moments = geo.float(), moments.float()
     rgb, cv = col[..., :3], col[..., 3]
     cd = geo[..., 3]
     hist_len = moments[..., 2]
@@ -88,12 +114,14 @@ def eaw_disocclusion_plain(color4, geo, moments, s_normal, s_depth, s_luma):
     passthrough = (cd < 1e-5) | (hist_len >= SPATIAL_VARIANCE_THRESHOLD)
     out_c = torch.where(passthrough[..., None], rgb, f_c)
     out_v = torch.where(passthrough, cv, f_v)
-    return torch.cat([out_c, out_v[..., None]], -1)
+    return torch.cat([out_c, out_v[..., None]], -1).to(dtype)
 
 
 def eaw_stage_plain(color4, geo, stride: int, use_variance: bool, s_normal, s_depth, s_luma):
     """The plain version of K4 (eaw_blur.hlsl Blur at one stride)."""
-    col = _clamped(color4)
+    dtype = color4.dtype
+    col = _clamped(color4.float())
+    geo = geo.float()
     rgb, cv = col[..., :3], col[..., 3]
     cd = geo[..., 3]
     cl = m.luminance(rgb)
@@ -125,62 +153,167 @@ def eaw_stage_plain(color4, geo, stride: int, use_variance: bool, s_normal, s_de
     background = cd < 1e-5
     out_c = torch.where(background[..., None], rgb, out_c)
     out_v = torch.where(background, cv, out_v)
-    return torch.cat([out_c, out_v[..., None]], -1)
+    return torch.cat([out_c, out_v[..., None]], -1).to(dtype)
 
 
-def _check_image(x, name, channels, h, w, dev):
-    K.check_cuda(x, name, torch.float32, (h, w, channels), dev)
-    if channels == 4 and x.data_ptr() % 16:
-        raise ValueError(f"{name}: must be 16-byte aligned for float4 reads")
+def eaw_pair_plain(color4, geo, stride_a: int, stride_b: int, use_variance: bool,
+                   s_normal, s_depth, s_luma):
+    """The plain version of K6: two plain stages, the intermediate kept in
+    float32 (not rounded to the storage type)."""
+    mid = eaw_stage_plain(color4.float(), geo, stride_a, use_variance, s_normal, s_depth, s_luma)
+    return eaw_stage_plain(mid, geo, stride_b, use_variance, s_normal, s_depth,
+                           s_luma).to(color4.dtype)
+
+
+def spatial_gather_plain(indirect, geo, s_normal, s_depth, s_luma):
+    """The plain version of K5 (spatial_gather.hlsl as
+    pallas_stencil._gather_kernel computes it: the tap sum times
+    1/max(tw, EPS), taps in dy-then-dx order)."""
+    dtype = indirect.dtype
+    col, geo = indirect.float(), geo.float()
+    cd = geo[..., 3]
+    cl = m.luminance(col)
+    s_d_base = cd * s_depth
+    col_tap, geo_tap = _taps(col, 3), _taps(geo, 3)
+    acc = torch.zeros_like(col)
+    tw = torch.zeros_like(cd)
+    for dy in range(-3, 4):
+        for dx in range(-3, 4):
+            ct, gt = col_tap(dx, dy), geo_tap(dx, dy)
+            w = _edge_weights(geo, gt, s_normal, s_d_base * math.sqrt(dx * dx + dy * dy))
+            lw = m.luma_weight(cl, m.luminance(ct), s_luma)
+            w_full = torch.where(gt[..., 3] >= 1e-5, w * lw, 0.0)
+            acc = acc + w_full[..., None] * ct
+            tw = tw + w_full
+    inv = 1.0 / tw.clamp_min(EPS)[..., None]
+    out = torch.where((tw < EPS)[..., None], col, acc * inv)
+    return torch.where((cd < 1e-5)[..., None], col, out).to(dtype)
+
+
+def _storage(x) -> torch.dtype:
+    if x.dtype not in K.STORAGE_SUFFIX:
+        raise ValueError(f"stencil storage must be float32 or bfloat16, got {x.dtype}")
+    return x.dtype
+
+
+def _check_image(x, name, channels, h, w, dev, dtype):
+    # four-channel pixels are read in one load of 4 values
+    align = 4 * x.element_size() if channels == 4 else 1
+    K.check_cuda(x, name, dtype, (h, w, channels), dev, align=align)
 
 
 def eaw_disocclusion(color4, geo, moments, s_normal, s_depth, s_luma):
     """K3 on CUDA tensors, its plain version on CPU tensors.
-    color4 [H,W,4], geo [H,W,4], moments [H,W,3] -> [H,W,4]."""
+    color4 [H,W,4], geo [H,W,4], moments [H,W,3], all of one storage type
+    -> [H,W,4] in that type."""
     if K.on_cpu(color4):
         return eaw_disocclusion_plain(color4, geo, moments, s_normal, s_depth, s_luma)
-    dev = color4.device
+    dev, dt = color4.device, _storage(color4)
     h, w = color4.shape[:2]
-    _check_image(color4, "color4", 4, h, w, dev)
-    _check_image(geo, "geo", 4, h, w, dev)
-    _check_image(moments, "moments", 3, h, w, dev)
+    _check_image(color4, "color4", 4, h, w, dev, dt)
+    _check_image(geo, "geo", 4, h, w, dev, dt)
+    _check_image(moments, "moments", 3, h, w, dev, dt)
     out = torch.empty_like(color4)
     K3.launch(dev, K.ptr(color4), K.ptr(geo), K.ptr(moments), K.ptr(out), h, w,
-              float(s_normal), float(s_depth), float(s_luma))
+              float(s_normal), float(s_depth), float(s_luma), storage=dt)
     return out
 
 
 def eaw_stage(color4, geo, stride: int, use_variance: bool, s_normal, s_depth, s_luma):
     """K4 on CUDA tensors, its plain version on CPU tensors.
-    color4 [H,W,4], geo [H,W,4] -> [H,W,4]."""
+    color4 [H,W,4], geo [H,W,4], of one storage type -> [H,W,4] in that type."""
     if K.on_cpu(color4):
         return eaw_stage_plain(color4, geo, stride, use_variance, s_normal, s_depth, s_luma)
-    dev = color4.device
+    dev, dt = color4.device, _storage(color4)
     h, w = color4.shape[:2]
-    _check_image(color4, "color4", 4, h, w, dev)
-    _check_image(geo, "geo", 4, h, w, dev)
+    _check_image(color4, "color4", 4, h, w, dev, dt)
+    _check_image(geo, "geo", 4, h, w, dev, dt)
     out = torch.empty_like(color4)
     K4.launch(dev, K.ptr(color4), K.ptr(geo), K.ptr(out), h, w, int(stride),
-              int(bool(use_variance)), float(s_normal), float(s_depth), float(s_luma))
+              int(bool(use_variance)), float(s_normal), float(s_depth), float(s_luma),
+              storage=dt)
     return out
+
+
+def eaw_pair(color4, geo, stride_a: int, stride_b: int, use_variance: bool,
+             s_normal, s_depth, s_luma):
+    """K6 on CUDA tensors, its plain version on CPU tensors: the stage at
+    stride_a, then the stage at stride_b on its output.
+    color4 [H,W,4], geo [H,W,4], of one storage type -> [H,W,4] in that type."""
+    if K.on_cpu(color4):
+        return eaw_pair_plain(color4, geo, stride_a, stride_b, use_variance,
+                              s_normal, s_depth, s_luma)
+    dev, dt = color4.device, _storage(color4)
+    h, w = color4.shape[:2]
+    _check_image(color4, "color4", 4, h, w, dev, dt)
+    _check_image(geo, "geo", 4, h, w, dev, dt)
+    if min(stride_a, stride_b) < 1 or (EAW_TILE + 4 * stride_b) ** 2 * 16 > PAIR_SMEM_LIMIT:
+        raise ValueError(f"eaw_pair: strides ({stride_a}, {stride_b}) out of range")
+    out = torch.empty_like(color4)
+    K6.launch(dev, K.ptr(color4), K.ptr(geo), K.ptr(out), h, w, int(stride_a), int(stride_b),
+              int(bool(use_variance)), float(s_normal), float(s_depth), float(s_luma),
+              storage=dt)
+    return out
+
+
+def spatial_gather(indirect, geo, s_normal, s_depth, s_luma):
+    """K5 on CUDA tensors, its plain version on CPU tensors.
+    indirect [H,W,3], geo [H,W,4], of one storage type -> [H,W,3] in that
+    type. Any H and W."""
+    if K.on_cpu(indirect):
+        return spatial_gather_plain(indirect, geo, s_normal, s_depth, s_luma)
+    dev, dt = indirect.device, _storage(indirect)
+    h, w = indirect.shape[:2]
+    _check_image(indirect, "indirect", 3, h, w, dev, dt)
+    _check_image(geo, "geo", 4, h, w, dev, dt)
+    out = torch.empty_like(indirect)
+    K5.launch(dev, K.ptr(indirect), K.ptr(geo), K.ptr(out), h, w,
+              float(s_normal), float(s_depth), float(s_luma), storage=dt)
+    return out
+
+
+def storage_dtype(options) -> torch.dtype:
+    """The stencils' storage type: bfloat16 under eaw_bf16, else float32."""
+    return torch.bfloat16 if options.eaw_bf16 else torch.float32
+
+
+def pack_geo(nd_normal, nd_depth, dtype=torch.float32):
+    """Decoded normals [H,W,3] and depth [H,W] -> geo [H,W,4] in `dtype`."""
+    return torch.cat([nd_normal, nd_depth[..., None]], -1).to(dtype).contiguous()
 
 
 def chain_strides(options):
     return (1, 3, 5, 7) if options.eaw5 else (1, 3)
 
 
+def chain_groups(options):
+    """The chain's a-trous stages in order, as groups of one stride (a K4
+    launch) or two (a K6 launch), as pallas_stencil.denoise_chain groups
+    them: eaw_fused "1" fuses (1, 3) and (5, 7); "13" fuses (1, 3) and runs
+    5 and 7 alone; without eaw5 only (1, 3) is left to fuse."""
+    strides = chain_strides(options)
+    if options.eaw_fused == "0":
+        return [(s,) for s in strides]
+    groups = [(1, 3)]
+    if options.eaw5:
+        groups += [(5, 7)] if options.eaw_fused == "1" else [(5,), (7,)]
+    return groups
+
+
 def denoise_chain(color4, nd_normal, nd_depth, moments4, settings, options):
     """The EAW chain (raytracing_system.cpp:1437-1539): the disocclusion
-    blur, then a-trous stages at strides 1, 3, 5, 7 (1, 3 without eaw5).
+    blur, then a-trous stages at strides 1, 3, 5, 7 (1, 3 without eaw5),
+    grouped as `chain_groups` says, in the storage type of `storage_dtype`.
     color4 [H,W,4], nd_normal [H,W,3] decoded normals, nd_depth [H,W],
-    moments4 [H,W,4] (m1, m2, 0, history length) -> [H,W,4]."""
-    if options.eaw_fused != "0" or options.eaw_bf16:
-        raise NotImplementedError(
-            "eaw_fused/eaw_bf16 variants are not ported yet (ROADMAP B2)")
-    geo = torch.cat([nd_normal, nd_depth[..., None]], -1).contiguous()
-    moments = torch.cat([moments4[..., 0:2], moments4[..., 3:4]], -1)
+    moments4 [H,W,4] (m1, m2, 0, history length) -> [H,W,4] float32."""
+    dt = storage_dtype(options)
+    geo = pack_geo(nd_normal, nd_depth, dt)
+    moments = torch.cat([moments4[..., 0:2], moments4[..., 3:4]], -1).to(dt).contiguous()
     sig = (settings.eaw_normal_sigma, settings.eaw_depth_sigma, settings.eaw_luma_sigma)
-    out = eaw_disocclusion(color4.contiguous(), geo, moments, *sig)
-    for s in chain_strides(options):
-        out = eaw_stage(out, geo, s, options.use_variance, *sig)
-    return out
+    out = eaw_disocclusion(color4.to(dt).contiguous(), geo, moments, *sig)
+    for group in chain_groups(options):
+        if len(group) == 2:
+            out = eaw_pair(out, geo, *group, options.use_variance, *sig)
+        else:
+            out = eaw_stage(out, geo, group[0], options.use_variance, *sig)
+    return out.float()

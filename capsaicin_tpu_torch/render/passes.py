@@ -7,9 +7,11 @@ pixel list where it traces rays. The gbuffers are typed tensors:
   geo gbuffer  : {"bary": [H,W,2] f32, "prim": [H,W] i32}, -1 = miss
   normal/depth : {"oct": [H,W,2] f32, "inst": [H,W] i32, "depth": [H,W] f32},
                  depth 0 flags background
-Traversal comes in as two callables (render.traversal); shading reads the
-[T,29] triangle attribute table (`shading.tri_attr_table`) in place of the
-Scene. Frame counters are host integers.
+Traversal comes in as two callables (render.traversal); shading reads a
+`shading.ShadingScene` (the [T,29] triangle attribute table and the
+texture atlas) in place of the Scene. Frame counters are host integers, so
+the 2x2 interleave phase of lowres_indirect and the blue-noise seeds of
+every spp sample are host values too.
 """
 
 from __future__ import annotations
@@ -76,6 +78,17 @@ def _sky(device):
     return m.const(shading.SKY_COLOR, device)
 
 
+def interleave_offset(frame_count: int):
+    """2x2 interleave phase (ox, oy); rt_indirect.hlsl:53-55."""
+    fc = frame_count % 4
+    return fc // 2, fc % 2
+
+
+def _deinterleave2(x, oy: int, ox: int):
+    """x[oy::2, ox::2], cut to [H//2, W//2]."""
+    return x[oy::2, ox::2][: x.shape[0] // 2, : x.shape[1] // 2]
+
+
 # --------------------------------------------------------------------------
 # Pass 1: primary visibility (rt_primary_visibility.hlsl)
 
@@ -94,13 +107,13 @@ def trace_primary(closest_fn, camera, width, height, frame_count: int):
 # Pass 2: direct lighting (rt_direct_lighting.hlsl)
 
 
-def direct_lighting(table, any_fn, camera, gb, width, height, frame_count: int,
+def direct_lighting(scene, any_fn, camera, gb, width, height, frame_count: int,
                     options: RenderOptions):
     miss = _flat(gb["prim"] < 0)
     bary = _flat(gb["bary"])
-    hit = shading.fetch_hit_attributes(table, _flat(gb["prim"]), bary[:, 0], bary[:, 1])
+    hit = shading.fetch_hit_attributes(scene.table, _flat(gb["prim"]), bary[:, 0], bary[:, 1])
     p, n = hit["p"], hit["n"]
-    kd = shading.material_from_hit(hit, options.use_material_kd)
+    kd = shading.material_from_hit(scene, hit, options.use_material_kd)
     black = (kd < 1e-5).all(-1)
 
     ldir, unshadowed = shading.direct_illumination_terms(p, n, kd, frame_count)
@@ -177,18 +190,29 @@ def _feedback_fetch(p, prev_camera, combined_history, prev_depth, width, height)
     return hist, disocc
 
 
-def indirect_gi(table, closest_fn, any_fn, camera, prev_camera, gb, combined_history,
+def indirect_gi(scene, closest_fn, any_fn, camera, prev_camera, gb, combined_history,
                 prev_nd, noise, width, height, frame_count: int, options: RenderOptions,
                 noise_frame=None):
     """The path loop of rt_indirect.hlsl:42-175 as a wavefront: all pixels
     advance through the bounces together, finished lanes masked. The last
-    bounce's trace is never shaded in the reference and is skipped."""
-    if options.lowres_indirect:
-        raise NotImplementedError("lowres_indirect is not ported yet (ROADMAP A8)")
+    bounce's trace is never shaded in the reference and is skipped.
+
+    noise_frame seeds the blue-noise sample set (frame_count by default);
+    batched spp passes frame_count*spp + s, so each sample draws its own
+    set while the light and the interleave phase stay the frame's. Under
+    lowres_indirect the paths start at the 2x2 interleave phase's pixels
+    (2x+ox, 2y+oy) and the result is [H//2, W//2]."""
     if noise_frame is None:
         noise_frame = frame_count
-    prim = _flat(gb["prim"])
-    bary = _flat(gb["bary"])
+    if options.lowres_indirect:
+        w2, h2 = width // 2, height // 2
+        ox, oy = interleave_offset(frame_count)
+        prim = _flat(_deinterleave2(gb["prim"], oy, ox))
+        bary = _flat(_deinterleave2(gb["bary"], oy, ox))
+    else:
+        w2, h2, ox, oy = width, height, 0, 0
+        prim = _flat(gb["prim"])
+        bary = _flat(gb["bary"])
     u, v = bary[:, 0], bary[:, 1]
     npix = prim.shape[0]
     color = torch.zeros((npix, 3), device=prim.device)
@@ -204,9 +228,9 @@ def indirect_gi(table, closest_fn, any_fn, camera, prev_camera, gb, combined_his
             color = torch.where(miss_now[:, None], color + throughput * sky, color)
             active = active & (prim >= 0)
 
-        hit = shading.fetch_hit_attributes(table, prim, u, v)
+        hit = shading.fetch_hit_attributes(scene.table, prim, u, v)
         p, n = hit["p"], hit["n"]
-        kd = shading.material_from_hit(hit, options.use_material_kd)
+        kd = shading.material_from_hit(scene, hit, options.use_material_kd)
         active = active & ~(kd < 1e-5).all(-1)
 
         if bounce != 0:
@@ -226,8 +250,9 @@ def indirect_gi(table, closest_fn, any_fn, camera, prev_camera, gb, combined_his
         if bounce == options.num_diffuse_bounces:
             break
 
-        s = sampling.bluenoise4x4_field(
-            noise, width, height, noise_frame * 25 + bounce).reshape(-1, 2)
+        stride = 2 if options.lowres_indirect else 1
+        s = sampling.bluenoise4x4_field(noise, w2, h2, noise_frame * 25 + bounce,
+                                        stride=stride, offset=(ox, oy)).reshape(-1, 2)
         d, brdf, pdf = shading.lambert_sample(s, n)
         active = active & (pdf >= 1e-5)
         tp_scale = brdf * m.dot(n, d).clamp_min(0.0) / pdf.clamp_min(1e-20)
@@ -240,16 +265,32 @@ def indirect_gi(table, closest_fn, any_fn, camera, prev_camera, gb, combined_his
         u, v = hit["u"], hit["v"]
 
     color = torch.where(primary_miss[:, None], 0.0, color)
-    return _unflat(color, height, width)
+    return _unflat(color, h2, w2)
 
 
 # --------------------------------------------------------------------------
-# Pass 4: spatial gather (spatial_gather.hlsl)
+# Pass 4: spatial gather (spatial_gather.hlsl), kernel K5
 
 
-def spatial_gather(*args, **kwargs):
-    raise NotImplementedError(
-        "the spatial gather (gather=True) is not ported yet (ROADMAP B1)")
+def _subsampled_nd(nd, frame_count: int, options: RenderOptions):
+    """normal/depth at the indirect pass's resolution: full, or the 2x2
+    interleave phase's subsample under UPSCALE2X (spatial_gather.hlsl:36-46)."""
+    if not options.lowres_indirect:
+        return nd["oct"], nd["depth"]
+    ox, oy = interleave_offset(frame_count)
+    return _deinterleave2(nd["oct"], oy, ox), _deinterleave2(nd["depth"], oy, ox)
+
+
+def spatial_gather(indirect, nd, frame_count: int, settings: Settings, options: RenderOptions):
+    """The 7x7 edge-aware cross-bilateral filter of the raw indirect, with
+    the gather sigmas, in the stencils' storage type (bfloat16 under
+    eaw_bf16: the inputs rounded once, the result widened to float32)."""
+    oct, depth = _subsampled_nd(nd, frame_count, options)
+    dt = stencil.storage_dtype(options)
+    out = stencil.spatial_gather(
+        indirect.to(dt).contiguous(), stencil.pack_geo(m.oct_decode(oct), depth, dt),
+        settings.gather_normal_sigma, settings.gather_depth_sigma, settings.gather_luma_sigma)
+    return out.float()
 
 
 # --------------------------------------------------------------------------
@@ -394,11 +435,17 @@ def _closest_depth_3x3(depth):
 def svgf_accumulate(color_in, nd, rep, prev_camera, width, height, frame_count: int,
                     alpha_setting: float, options: RenderOptions):
     """History and moments blend with the shared reprojection `rep`.
+    color_in is the gathered indirect at the indirect pass's resolution
+    (half under UPSCALE2X, then brought to full resolution here).
     Returns (color_history [H,W,4] rgb + variance,
              moments_history [H,W,4] m1, m2, 0, history length)."""
-    if tuple(color_in.shape[:2]) != (height, width):
-        raise NotImplementedError("lowres_indirect is not ported yet (ROADMAP A8)")
-    color = color_in
+    in_h, in_w = color_in.shape[:2]
+    if (in_h, in_w) == (height, width):
+        color = color_in
+    elif (in_h * 2, in_w * 2) == (height, width):
+        color = resample.upsample2x_bilinear(color_in)
+    else:
+        color = resample.sample_bilinear(color_in, rep["this_uv"], (in_w, in_h))
     lum = m.luminance(color)
     fresh_moments = torch.stack([lum, lum * lum], -1)
     background = nd["depth"] < 1e-5
@@ -411,7 +458,16 @@ def svgf_accumulate(color_in, nd, rep, prev_camera, width, height, frame_count: 
     )
     history_length = rep["hist_len"]
     alpha = (1.0 - 1.0 / (history_length + 1.0)).clamp_max(alpha_setting)
-    alpha = torch.where(history_length < MAX_HISTORY_LENGTH, alpha, alpha_setting)[..., None]
+    alpha = torch.where(history_length < MAX_HISTORY_LENGTH, alpha, alpha_setting)
+    if options.lowres_indirect:
+        # pixels off this frame's interleave phase keep their history
+        ox, oy = interleave_offset(frame_count)
+        dev = history_length.device
+        not_phase = ((torch.arange(height, device=dev) % 2 != oy)[:, None]
+                     | (torch.arange(width, device=dev) % 2 != ox)[None, :])
+        alpha = torch.where(not_phase, 1.0, alpha)
+        history_length = torch.where(not_phase, history_length - 1.0, history_length)
+    alpha = alpha[..., None]
 
     moments = fresh_moments * (1.0 - alpha) + rep["moments"] * alpha
     variance = (moments[..., 1] - moments[..., 0] ** 2).abs()

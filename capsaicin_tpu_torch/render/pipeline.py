@@ -14,14 +14,14 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops.camera import Camera
-from . import passes
+from . import passes, shading
 from .settings import RenderOptions, Settings
 
 
 # The frame's passes, each under a profiler range of this name
 # (render.profiling reads them; outside a profiler a range costs ~1 us).
-PASS_NAMES = ("trace_primary", "direct_lighting", "indirect_gi", "reproject",
-              "svgf_accumulate", "denoise", "combine_taa", "composite")
+PASS_NAMES = ("trace_primary", "direct_lighting", "indirect_gi", "spatial_gather",
+              "reproject", "svgf_accumulate", "denoise", "combine_taa", "composite")
 
 
 def _span(name: str):
@@ -58,20 +58,6 @@ class PassOutputs(NamedTuple):
     combined: torch.Tensor
 
 
-def check_supported(options: RenderOptions):
-    """Raise for an option value this port does not run yet."""
-    unported = [
-        (options.gather, "gather=True (spatial gather, ROADMAP B1)"),
-        (options.lowres_indirect, "lowres_indirect=True (ROADMAP A8)"),
-        (options.spp != 1, f"spp={options.spp} (ROADMAP A8)"),
-        (options.eaw_fused != "0", f"eaw_fused={options.eaw_fused!r} (ROADMAP B2)"),
-        (options.eaw_bf16, "eaw_bf16=True (ROADMAP B2)"),
-    ]
-    missing = [what for bad, what in unported if bad]
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
-
-
 def history_dtype(options: RenderOptions) -> torch.dtype:
     return {"float32": torch.float32, "float16": torch.float16}[options.history_dtype]
 
@@ -92,7 +78,7 @@ def init_state(width: int, height: int, camera: Camera, options: RenderOptions) 
 
 
 def render_frame(
-    table: torch.Tensor,
+    scene: shading.ShadingScene,
     closest_fn: Callable,
     any_fn: Callable,
     camera: Camera,
@@ -104,10 +90,8 @@ def render_frame(
     options: RenderOptions,
     collect_aux: bool = False,
 ):
-    """One full frame. `table` is the scene's [T,29] triangle attribute
-    table (shading.tri_attr_table). Returns (display [H,W,3] gamma-encoded,
-    new FrameState[, PassOutputs])."""
-    check_supported(options)
+    """One full frame of the scene's ShadingScene (shading.shading_scene).
+    Returns (display [H,W,3] gamma-encoded, new FrameState[, PassOutputs])."""
     frame_count = state.frame_count
     prev_camera = state.prev_camera
     prev_nd = {"oct": state.prev_nd_oct, "inst": state.prev_nd_inst, "depth": state.prev_nd_depth}
@@ -119,13 +103,26 @@ def render_frame(
     # 2. direct lighting + gbuffer
     with _span("direct_lighting"):
         direct, albedo, nd = passes.direct_lighting(
-            table, any_fn, camera, gb, width, height, frame_count, options)
-    # 3. indirect diffuse GI (4., the spatial gather, is not ported)
+            scene, any_fn, camera, gb, width, height, frame_count, options)
+    # 3. indirect diffuse GI: options.spp sample sets, each with its own
+    # blue-noise seed frame_count*spp + s, summed in order and averaged
     with _span("indirect_gi"):
-        indirect = passes.indirect_gi(
-            table, closest_fn, any_fn, camera, prev_camera, gb, combined_history, prev_nd,
-            noise, width, height, frame_count, options)
-    gathered = indirect
+        spp = max(int(options.spp), 1)
+        indirect = None
+        for s in range(spp):
+            sample = passes.indirect_gi(
+                scene, closest_fn, any_fn, camera, prev_camera, gb, combined_history,
+                prev_nd, noise, width, height, frame_count, options,
+                noise_frame=frame_count * spp + s)
+            indirect = sample if indirect is None else indirect + sample
+        if spp > 1:
+            indirect = indirect / spp
+    # 4. spatial gather
+    if options.gather:
+        with _span("spatial_gather"):
+            gathered = passes.spatial_gather(indirect, nd, frame_count, settings, options)
+    else:
+        gathered = indirect
     # shared temporal reprojection + history fetch (SVGF + TAA)
     with _span("reproject"):
         rep = passes.reproject_and_fetch_history(

@@ -96,7 +96,6 @@ def main(argv=None) -> int:
     from ..scene import build_scene
     from ..scene.procedural import cornell_box, make_camera
     from .session import RenderSession
-    from .settings import RenderOptions
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--width", type=int, default=1920)
@@ -104,7 +103,7 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args(argv)
-    session = RenderSession(args.width, args.height, options=RenderOptions(gather=False))
+    session = RenderSession(args.width, args.height)
     session.set_camera(make_camera("cornell", args.width, args.height))
     session.set_scene(build_scene(cornell_box()))
     result = profile_frames(session, frames=args.frames)

@@ -1,11 +1,11 @@
-"""The procedural Cornell box and its camera: the parts of
-capsaicin_tpu/scene/procedural.py that the renderer's main path uses,
-built with numpy and torch only."""
+"""The procedural Cornell boxes (plain and textured), their textures and
+the camera presets: the parts of capsaicin_tpu/scene/procedural.py that
+the renderer's configurations use, built with numpy and torch only."""
 
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
@@ -58,14 +58,15 @@ RED = (0.504, 0.052, 0.04)
 GREEN = (0.156, 0.426, 0.107)
 
 
-def cornell_box() -> List[MeshData]:
+def cornell_box(floor_texture: str = "", back_texture: str = "") -> List[MeshData]:
     """The 2-unit Cornell box with a skylight opening in the ceiling (the
-    renderer's only light is a directional one): 40 triangles."""
+    renderer's only light is a directional one): 40 triangles. The floor
+    and back wall may name a diffuse texture."""
     m_white = Material("white", kd=WHITE)
     m_red = Material("leftWall", kd=RED)
     m_green = Material("rightWall", kd=GREEN)
-    m_floor = Material("floor", kd=WHITE)
-    m_back = Material("backWall", kd=WHITE)
+    m_floor = Material("floor", kd=WHITE, diffuse_texname=floor_texture)
+    m_back = Material("backWall", kd=WHITE, diffuse_texname=back_texture)
 
     def wall(name, mat, v0, v1, v2, v3, n):
         mesh = MeshData(name=name)
@@ -94,6 +95,41 @@ def cornell_box() -> List[MeshData]:
         ceiling,
         wall("floor", m_floor, (-1, 0, -1), (1, 0, -1), (1, 0, 1), (-1, 0, 1), (0, 1, 0)),
     ]
+
+
+def _q8(img: np.ndarray) -> np.ndarray:
+    """Snap to the 8-bit grid, as a PNG's pixels are (which makes
+    scene.quantize_atlas lossless)."""
+    return (np.round(img * 255.0) / np.float32(255.0)).astype(np.float32)
+
+
+def checker_texture(size: int = 128, tiles: int = 8) -> np.ndarray:
+    """[size,size,4] checkerboard in [0,1] (display-referred, like a PNG)."""
+    ax = np.arange(size)
+    cell = (ax[:, None] * tiles // size + ax[None, :] * tiles // size) % 2
+    img = np.repeat(np.where(cell[..., None] == 0, 0.9, 0.25).astype(np.float32), 3, axis=-1)
+    return _q8(np.concatenate([img, np.ones((size, size, 1), np.float32)], axis=-1))
+
+
+def stripe_texture(h: int = 48, w: int = 96, stripes: int = 12) -> np.ndarray:
+    """[h,w,4] vertical stripes, non-square and of another size than the
+    checker, so a two-texture atlas is padded and wraps per texture."""
+    band = (np.arange(w) * stripes // w) % 2
+    img = np.repeat(np.where(band[None, :, None] == 0, 0.85, 0.35).astype(np.float32), 3, axis=-1)
+    img = np.broadcast_to(img, (h, w, 3)).copy()
+    return _q8(np.concatenate([img, np.ones((h, w, 1), np.float32)], axis=-1))
+
+
+def cornell_box_textured() -> Tuple[List[MeshData], dict]:
+    """The Cornell box with a checkerboard floor: (meshes, textures)."""
+    return cornell_box(floor_texture="checker.png"), {"checker.png": checker_texture()}
+
+
+def cornell_box_multitextured() -> Tuple[List[MeshData], dict]:
+    """Two textures of different sizes: a 128x128 checker floor and a 48x96
+    striped back wall."""
+    meshes = cornell_box(floor_texture="checker.png", back_texture="stripes.png")
+    return meshes, {"checker.png": checker_texture(), "stripes.png": stripe_texture()}
 
 
 def camera_preset(name: str = "cornell"):

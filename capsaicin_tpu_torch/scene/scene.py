@@ -3,13 +3,14 @@ fields of capsaicin_tpu/scene/scene.py. A Scene built here holds numpy
 arrays; `convert.scene_from_numpy` gives the same Scene with torch tensors
 on a device.
 
-Only untextured scenes are built so far: the atlas is the 1x1 fallback.
-Textured scenes wait for ROADMAP A8.
+The texture atlas is quad-packed: for every texel, the four corners of
+its bilinear footprint ((0,0), (+1,0), (0,+1), (+1,+1), wrapped at the
+texture's own size), so one row read fetches a whole bilinear sample.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -44,7 +45,8 @@ class Scene(NamedTuple):
     tri_t2: np.ndarray
     tri_mesh: np.ndarray  # [T] i32
 
-    atlas: np.ndarray  # [N,TH,TW,16] f32 quad-packed texels
+    atlas: np.ndarray  # [N,TH,TW,16] f32 quad-packed texels, or [N,TH,TW,4]
+    #                    int32 holding each corner's rgba8 bits (quantize_atlas)
     atlas_size: np.ndarray  # [N,2] i32 (w,h)
 
     @property
@@ -52,10 +54,36 @@ class Scene(NamedTuple):
         return self.tri_v0.shape[0]
 
 
-def build_scene(meshes: List[MeshData]) -> Scene:
-    """Assemble an untextured Scene from per-mesh data."""
-    if any(mesh.texture_name for mesh in meshes):
-        raise NotImplementedError("textured scenes are not ported yet (ROADMAP A8)")
+def _pack_atlas(images: List[np.ndarray]):
+    """Quad-packed atlas [N,TH,TW,16] and sizes [N,2] of [H,W,4] images,
+    padded to the largest; the 1x1 zero atlas where there are none."""
+    if not images:
+        return np.zeros((1, 1, 1, 16), np.float32), np.ones((1, 2), np.int32)
+    th = max(i.shape[0] for i in images)
+    tw = max(i.shape[1] for i in images)
+    atlas = np.zeros((len(images), th, tw, 16), np.float32)
+    sizes = np.zeros((len(images), 2), np.int32)
+    for k, img in enumerate(images):
+        quad = np.concatenate(
+            [img, np.roll(img, -1, axis=1), np.roll(img, -1, axis=0),
+             np.roll(img, (-1, -1), axis=(0, 1))], axis=-1)
+        atlas[k, : img.shape[0], : img.shape[1], :] = quad
+        sizes[k] = (img.shape[1], img.shape[0])
+    return atlas, sizes
+
+
+def build_scene(meshes: List[MeshData],
+                textures: Optional[Dict[str, np.ndarray]] = None) -> Scene:
+    """Assemble a Scene from per-mesh data. textures: name -> [H,W,4]
+    float image in [0,1], before the gamma-2.2 decode the shading does. A
+    mesh without a texture name gets texture id -1 (constant albedo); a
+    named texture that is missing becomes a 1x1 black texel
+    (texture_system.cpp:47-56)."""
+    textures = textures or {}
+    tex_names: List[str] = []
+    for mesh in meshes:
+        if mesh.texture_name and mesh.texture_name not in tex_names:
+            tex_names.append(mesh.texture_name)
     pos_list, nrm_list, uv_list, idx_list = [], [], [], []
     mfv, mvc, mfi, mic, mkd, mfp = [], [], [], [], [], []
     tri = {k: [] for k in ("v0", "v1", "v2", "n0", "n1", "n2", "t0", "t1", "t2")}
@@ -83,6 +111,8 @@ def build_scene(meshes: List[MeshData]) -> Scene:
         first_index += idx.shape[0]
         first_prim += corners.shape[0]
 
+    blank = np.zeros((1, 1, 4), np.float32)
+    atlas, sizes = _pack_atlas([textures.get(name, blank) for name in tex_names])
     cat = np.concatenate
     f32 = np.float32
     return Scene(
@@ -94,11 +124,27 @@ def build_scene(meshes: List[MeshData]) -> Scene:
         mesh_vertex_count=np.asarray(mvc, np.int32),
         mesh_first_index=np.asarray(mfi, np.int32),
         mesh_index_count=np.asarray(mic, np.int32),
-        mesh_texture=np.full(len(meshes), -1, np.int32),
+        mesh_texture=np.asarray(
+            [tex_names.index(mesh.texture_name) if mesh.texture_name else -1
+             for mesh in meshes], np.int32),
         mesh_kd=np.asarray(mkd, f32),
         mesh_first_prim=np.asarray(mfp, np.int32),
         **{f"tri_{k}": cat(v).astype(f32) for k, v in tri.items()},
         tri_mesh=cat(tmesh).astype(np.int32),
-        atlas=np.zeros((1, 1, 1, 16), f32),
-        atlas_size=np.ones((1, 2), np.int32),
+        atlas=atlas,
+        atlas_size=sizes,
     )
+
+
+def quantize_atlas(scene: Scene) -> Scene:
+    """The float32 quad atlas [N,TH,TW,16] -> [N,TH,TW,4] int32, each
+    channel one corner's rgba8 bits (r in the low byte): the reference's
+    R8G8B8A8_UNORM texel precision (texture_system.cpp:58-66) at a quarter
+    of the bytes. The bits are those of the JAX package's uint32 atlas,
+    held as int32. Exact for sources on the 8-bit grid (PNG loads and the
+    procedural textures)."""
+    if scene.atlas.dtype == np.int32:
+        return scene
+    q = np.round(np.clip(scene.atlas, 0.0, 1.0) * 255.0).astype(np.uint32)
+    packed = q[..., 0::4] | (q[..., 1::4] << 8) | (q[..., 2::4] << 16) | (q[..., 3::4] << 24)
+    return scene._replace(atlas=packed.view(np.int32))

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (capsaicin_tpu_torch) on one NVIDIA
-GPU: builds the CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the shapes of the 1080p frame, renders the Cornell box
-at 1920x1080 through the session API and checks that the frame went
-through every kernel, then holds a small CUDA render against the CPU path.
+GPU: builds the CUDA kernels from csrc/, holds each (and its bf16-storage
+instance) against its plain PyTorch version at the shapes of the 1080p
+frame, renders the Cornell box at 1920x1080 with default options through
+the session API and checks that the frame went through every kernel,
+renders the other Cornell configurations of bench.py the same way, then
+holds small CUDA renders against the CPU path.
 
     python3 chip_smoke.py
 
@@ -23,6 +25,51 @@ FRAMES = 8
 SMALL = 64
 SMALL_FRAMES = 3
 RMSE_BAR = 1e-3  # BASELINE.json's accuracy bar
+TOL = dict(rtol=1e-3, atol=1e-4)  # float32 kernels against their plain versions
+BF16_MAX, BF16_MEAN = 2e-2, 1e-3  # bf16 storage: one rounding may flip by an ulp
+SKY = (0.7, 0.7, 0.85)
+
+# Per-frame launches of the flagship frame (gi1080, default options)
+FLAGSHIP_LAUNCHES = {"static_trace": 4, "hit_attributes": 3, "spatial_gather": 1,
+                     "eaw_disocclusion": 1, "eaw_stage": 4, "eaw_pair": 0}
+# The other Cornell configurations of bench.py:113-160, as (name, size and
+# options, frames timed, per-frame launches each fixes)
+DIRECT512 = dict(width=512, height=512, options=dict(
+    num_diffuse_bounces=0, output=1, taa=False, denoise=False, gather=False))
+DIRECT512_LAUNCHES = dict(static_trace=2, hit_attributes=2, spatial_gather=0,
+                          eaw_disocclusion=0, eaw_stage=0, eaw_pair=0)
+PROGRESSIVE = dict(width=1024, height=1024, options=dict(lowres_indirect=True))
+TEXTURED = dict(width=1024, height=1024, scene="textured")
+CONFIGS = [
+    ("direct512", DIRECT512, 8, DIRECT512_LAUNCHES),
+    ("direct512_loop16", dict(DIRECT512, loop=16), 16, DIRECT512_LAUNCHES),
+    ("gi1080x4", dict(width=W, height=H, options=dict(num_diffuse_bounces=4)), 8,
+     dict(static_trace=10, hit_attributes=6, spatial_gather=1, eaw_stage=4, eaw_pair=0)),
+    ("gi1080x4_spp64", dict(width=W, height=H, options=dict(num_diffuse_bounces=4, spp=64)), 4,
+     dict(static_trace=514, hit_attributes=321, spatial_gather=1, eaw_stage=4)),
+    ("progressive", PROGRESSIVE, 8,
+     dict(static_trace=4, hit_attributes=3, spatial_gather=1, eaw_stage=4)),
+    ("progressive_loop16", dict(PROGRESSIVE, loop=16), 16,
+     dict(static_trace=4, hit_attributes=3, spatial_gather=1, eaw_stage=4)),
+    ("textured", TEXTURED, 8,
+     dict(static_trace=4, hit_attributes=3, spatial_gather=1, eaw_stage=4)),
+    ("textured_loop16", dict(TEXTURED, loop=16), 16,
+     dict(static_trace=4, hit_attributes=3, spatial_gather=1, eaw_stage=4)),
+    ("textured_u32", dict(TEXTURED, atlas_u32=True), 8,
+     dict(static_trace=4, hit_attributes=3, spatial_gather=1, eaw_stage=4)),
+    ("gi1080_fp16hist", dict(width=W, height=H, options=dict(history_dtype="float16")), 8,
+     dict(static_trace=4, hit_attributes=3, spatial_gather=1, eaw_stage=4)),
+    ("gi1080_loop16", dict(width=W, height=H, loop=16), 16,
+     dict(static_trace=4, hit_attributes=3, spatial_gather=1, eaw_stage=4)),
+    ("gi1080_eaw_fused1", dict(width=W, height=H, options=dict(eaw_fused="1")), 8,
+     dict(eaw_disocclusion=1, eaw_stage=0, eaw_pair=2)),
+    ("gi1080_eaw_fused13", dict(width=W, height=H, options=dict(eaw_fused="13")), 8,
+     dict(eaw_disocclusion=1, eaw_stage=2, eaw_pair=1)),
+    ("gi1080_eaw_bf16", dict(width=W, height=H, options=dict(eaw_bf16=True)), 8,
+     dict(spatial_gather=1, eaw_disocclusion=1, eaw_stage=4, eaw_pair=0)),
+]
+# The configuration whose run is the path of a kernel not on the flagship's
+PATH_OF = {"eaw_pair": "gi1080_eaw_fused1"}
 
 
 def check(cond, what: str):
@@ -46,23 +93,46 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def rays_per_frame(width, height, bounces):
-    """Rays traced per frame, counted as bench.py counts them: primary and
-    direct shadow at every pixel, and per bounce one bounce ray and one
-    NEE shadow ray."""
-    return 2 * width * height + 2 * width * height * bounces
+def rays_per_frame(width, height, bounces, lowres=False, spp=1):
+    """Rays traced per frame, counted as bench.py:102 counts them: primary
+    and direct shadow at every pixel, and per bounce and per spp sample one
+    bounce ray and one NEE shadow ray at the indirect resolution."""
+    full = width * height
+    half = full // 4 if lowres else full
+    return 2 * full + 2 * half * bounces * spp
 
 
-def make_session(width, height, device):
+def make_session(width, height, device, options=None, scene="cornell", atlas_u32=False):
     from capsaicin_tpu_torch.render.session import RenderSession
     from capsaicin_tpu_torch.render.settings import RenderOptions
     from capsaicin_tpu_torch.scene import build_scene
-    from capsaicin_tpu_torch.scene.procedural import cornell_box, make_camera
+    from capsaicin_tpu_torch.scene.procedural import (
+        cornell_box, cornell_box_textured, make_camera)
+    from capsaicin_tpu_torch.scene.scene import quantize_atlas
 
-    session = RenderSession(width, height, options=RenderOptions(gather=False), device=device)
+    session = RenderSession(width, height, options=RenderOptions(**(options or {})),
+                            device=device)
     session.set_camera(make_camera("cornell", width, height))
-    session.set_scene(build_scene(cornell_box()))
+    host = build_scene(*cornell_box_textured()) if scene == "textured" else build_scene(
+        cornell_box())
+    session.set_scene(quantize_atlas(host) if atlas_u32 else host)
     return session
+
+
+def check_image(img, shape, what):
+    import numpy as np
+
+    check(img.shape == shape, f"{what}: display shape {img.shape}")
+    check(bool(np.isfinite(img).all()), f"{what}: display has non-finite pixels")
+    sky = np.float32(SKY) ** (1.0 / 2.2)
+    check(bool(np.abs(img[0, 0] - sky).max() < 1e-3),
+          f"{what}: corner pixel {img[0, 0]} is not the sky {sky}")
+
+
+def check_launches(launches, per_frame, frames, what):
+    for name, n in per_frame.items():
+        check(launches[name] == n * frames,
+              f"{what}: {name} {launches[name]} launches, expected {n * frames}")
 
 
 def compare_trace(session, report):
@@ -80,7 +150,7 @@ def compare_trace(session, report):
     o = o.reshape(n, 3).contiguous()
     d = d.reshape(n, 3).contiguous()
     tmax = torch.full((n,), 1e6, device=session.device)
-    acc, table = session.accel, session.attr_table
+    acc, table = session.accel, session.shade.table
 
     t, u, v, prim = static.static_trace(acc, o, d, 0.0, tmax, False)
     tp, up, vp, pp = static.static_trace_plain(acc.tris, o, d, 0.0, tmax, False)
@@ -108,7 +178,7 @@ def compare_trace(session, report):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
         k2_err = max(k2_err, float((a - b).abs().max()))
     print(f"K2: max abs err {k2_err:.3g} against the plain version")
-    kd = shading.material_from_hit(hitp)
+    kd = shading.material_from_hit(session.shade, hitp)
     ldir, unshadowed = shading.direct_illumination_terms(hitp["p"], hitp["n"], kd, 0)
     ldir = ldir.contiguous()
     live = (pp >= 0) & (unshadowed > 0.0).any(-1)
@@ -134,64 +204,163 @@ def compare_trace(session, report):
     report["hit_attributes"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain)
 
 
+def frame_aux(session, options, frames=3):
+    """(FrameState, PassOutputs) of the last of `frames` frames rendered
+    from a reset with `options`, outside the session's own state."""
+    from capsaicin_tpu_torch.render import pipeline
+    from capsaicin_tpu_torch.render.traversal import make_traversal
+
+    closest, any_hit = make_traversal("static", session.accel)
+    state = pipeline.init_state(session.width, session.height, session.camera, options)
+    for _ in range(frames):
+        _, state, aux = pipeline.render_frame(
+            session.shade, closest, any_hit, session.camera, state, session.settings,
+            session.noise, session.width, session.height, options, collect_aux=True)
+    return state, aux
+
+
 def compare_stencils(session, report):
-    """K3, K4 and the whole chain against their plain versions on the
-    denoiser's inputs of a 1080p frame (after two frames of history)."""
+    """K3-K6, their bf16 instances and the whole chain in each grouping
+    against their plain versions, on the gather's and the denoiser's
+    inputs of a 1080p frame (the third after a reset) and on the gather's
+    input of a lowres_indirect frame ([540, 960])."""
+    import dataclasses
+
     import torch
 
     from capsaicin_tpu_torch.ops import mathops as m
     from capsaicin_tpu_torch.ops import stencil
+    from capsaicin_tpu_torch.render import passes
 
-    session.reset()
-    for _ in range(3):
-        session.render_async()
-    st = session.state
+    opts = session.options
+    st, aux = frame_aux(session, opts)
     color4 = st.color_history.float().contiguous()
     moments4 = st.moments_history.float()
     normal = m.oct_decode(st.prev_nd_oct)
-    geo = torch.cat([normal, st.prev_nd_depth[..., None]], -1).contiguous()
+    geo = stencil.pack_geo(normal, st.prev_nd_depth)
     mom = moments4[..., [0, 1, 3]].contiguous()
     s = session.settings
     sig = (s.eaw_normal_sigma, s.eaw_depth_sigma, s.eaw_luma_sigma)
+    gsig = (s.gather_normal_sigma, s.gather_depth_sigma, s.gather_luma_sigma)
+    indirect = aux.indirect_raw.contiguous()
+    lst, laux = frame_aux(session, dataclasses.replace(opts, lowres_indirect=True))
+    ox, oy = passes.interleave_offset(lst.frame_count - 1)
+    low_in = laux.indirect_raw.contiguous()
+    low_geo = stencil.pack_geo(m.oct_decode(laux.nd_oct[oy::2, ox::2]),
+                               laux.nd_depth[oy::2, ox::2])
+    check(tuple(low_in.shape) == (H // 2, W // 2, 3), f"lowres gather input {low_in.shape}")
+    strides = stencil.chain_strides(opts)
+    pairs = ((1, 3), (5, 7))
 
     def close(a, b, what):
-        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4, msg=what)
+        torch.testing.assert_close(a, b, msg=what, **TOL)
         return float((a - b).abs().max())
 
-    k3_err = close(stencil.eaw_disocclusion(color4, geo, mom, *sig),
-                   stencil.eaw_disocclusion_plain(color4, geo, mom, *sig), "K3")
-    strides = stencil.chain_strides(session.options)
-    k4_err = 0.0
-    for stride in strides:
-        k4_err = max(k4_err, close(
-            stencil.eaw_stage(color4, geo, stride, True, *sig),
-            stencil.eaw_stage_plain(color4, geo, stride, True, *sig), f"K4 stride {stride}"))
+    def close_bf16(a, b, what):
+        check(a.dtype == b.dtype == torch.bfloat16, f"{what}: dtypes {a.dtype}, {b.dtype}")
+        err = (a.float() - b.float()).abs()
+        e_max, e_mean = float(err.max()), float(err.mean())
+        check(e_max <= BF16_MAX and e_mean <= BF16_MEAN,
+              f"{what}: bf16 max abs err {e_max}, mean {e_mean}")
+        return e_max, e_mean
 
-    def plain_chain():
-        out = stencil.eaw_disocclusion_plain(color4, geo, mom, *sig)
-        for stride in strides:
-            out = stencil.eaw_stage_plain(out, geo, stride, True, *sig)
-        return out
+    # each kernel, its plain version and the argument sets it is held on
+    full_geo = stencil.pack_geo(m.oct_decode(aux.nd_oct), aux.nd_depth)
+    cases = {
+        "eaw_disocclusion": (stencil.eaw_disocclusion, stencil.eaw_disocclusion_plain,
+                             [(color4, geo, mom, *sig)]),
+        "eaw_stage": (stencil.eaw_stage, stencil.eaw_stage_plain,
+                      [(color4, geo, k, True, *sig) for k in strides]),
+        "spatial_gather": (stencil.spatial_gather, stencil.spatial_gather_plain,
+                           [(indirect, full_geo, *gsig), (low_in, low_geo, *gsig)]),
+        "eaw_pair": (stencil.eaw_pair, stencil.eaw_pair_plain,
+                     [(color4, geo, *p, True, *sig) for p in pairs]),
+    }
+    for name, (kernel, plain, arg_sets) in cases.items():
+        bf_sets = [tuple(a.bfloat16() if torch.is_tensor(a) else a for a in args)
+                   for args in arg_sets]
+        err = max(close(kernel(*a), plain(*a), f"{name} case {n}")
+                  for n, a in enumerate(arg_sets))
+        bf_err = [close_bf16(kernel(*a), plain(*a), f"{name} bf16 case {n}")
+                  for n, a in enumerate(bf_sets)]
+        ms = [cuda_ms(lambda a=a: kernel(*a), 20) for a in arg_sets]
+        plain_ms = [cuda_ms(lambda a=a: plain(*a), 3) for a in arg_sets]
+        bf_ms = [cuda_ms(lambda a=a: kernel(*a), 20) for a in bf_sets]
+        bf_plain = [cuda_ms(lambda a=a: plain(*a), 3) for a in bf_sets]
+        entry = dict(max_abs_err=err, ms=sum(ms) / len(ms), plain_ms=sum(plain_ms) / len(ms),
+                     bf16_max_abs_err=max(e for e, _ in bf_err),
+                     bf16_mean_abs_err=max(e for _, e in bf_err),
+                     bf16_ms=sum(bf_ms) / len(ms), bf16_plain_ms=sum(bf_plain) / len(ms))
+        if len(ms) > 1:  # per case: strides, pairs, or the gather's full and half resolution
+            entry.update(case_ms=ms, case_plain_ms=plain_ms, case_bf16_ms=bf_ms)
+        report[name] = entry
+        print(f"{name}: max abs err {err:.3g} (bf16 {entry['bf16_max_abs_err']:.3g}, mean "
+              f"{entry['bf16_mean_abs_err']:.3g}); {entry['ms']:.4f} ms (plain "
+              f"{entry['plain_ms']:.4f} ms), bf16 {entry['bf16_ms']:.4f} ms (plain "
+              f"{entry['bf16_plain_ms']:.4f} ms); per case {[round(x, 4) for x in ms]} ms")
 
-    def chain():
-        return stencil.denoise_chain(color4, normal, st.prev_nd_depth, moments4, s, session.options)
+    def plain_chain(groups=tuple((k,) for k in strides), dt=torch.float32):
+        """The chain of plain versions in `dt` storage, grouped as the
+        kernels are (a pair keeps its intermediate in float32)."""
+        c, g, mo = color4.to(dt), geo.to(dt), mom.to(dt)
+        out = stencil.eaw_disocclusion_plain(c, g, mo, *sig)
+        for group in groups:
+            out = (stencil.eaw_pair_plain(out, g, *group, True, *sig) if len(group) == 2
+                   else stencil.eaw_stage_plain(out, g, group[0], True, *sig))
+        return out.float()
 
-    chain_err = close(chain(), plain_chain(), "denoise_chain")
-    print(f"K3 max abs err {k3_err:.3g}; K4 {k4_err:.3g}; chain {chain_err:.3g}")
-    chain_ms = cuda_ms(chain, 10)
+    def chain(o):
+        return stencil.denoise_chain(color4, normal, st.prev_nd_depth, moments4, s, o)
+
+    want = plain_chain()
     chain_plain = cuda_ms(plain_chain, 2)
-    print(f"denoise_chain {chain_ms:.4f} ms (plain {chain_plain:.4f} ms)")
+    for fused in ("0", "1", "13"):
+        o32 = dataclasses.replace(opts, eaw_fused=fused)
+        o16 = dataclasses.replace(o32, eaw_bf16=True)
+        err = close(chain(o32), want, f"denoise_chain eaw_fused={fused}")
+        print(f"denoise_chain eaw_fused={fused}: max abs err {err:.3g} against the plain "
+              f"sequential chain; {cuda_ms(lambda: chain(o32), 10):.4f} ms "
+              f"(plain {chain_plain:.4f} ms)")
+        e = (chain(o16) - plain_chain(stencil.chain_groups(o16), torch.bfloat16)).abs()
+        e_max, e_mean = float(e.max()), float(e.mean())
+        check(e_max <= BF16_MAX and e_mean <= BF16_MEAN,
+              f"denoise_chain eaw_fused={fused} eaw_bf16: max abs err {e_max}, mean {e_mean}")
+        print(f"denoise_chain eaw_fused={fused} eaw_bf16: max abs err {e_max:.3g} (mean "
+              f"{e_mean:.3g}) against the plain chain of the same grouping in bf16; "
+              f"{cuda_ms(lambda: chain(o16), 10):.4f} ms")
 
-    k3_ms = cuda_ms(lambda: stencil.eaw_disocclusion(color4, geo, mom, *sig), 20)
-    k3_plain = cuda_ms(lambda: stencil.eaw_disocclusion_plain(color4, geo, mom, *sig), 3)
-    k4_ms = sum(cuda_ms(lambda: stencil.eaw_stage(color4, geo, st_, True, *sig), 20)
-                for st_ in strides) / len(strides)
-    k4_plain = sum(cuda_ms(lambda: stencil.eaw_stage_plain(color4, geo, st_, True, *sig), 3)
-                   for st_ in strides) / len(strides)
-    print(f"K3 {k3_ms:.4f} ms (plain {k3_plain:.4f} ms); K4 mean over strides "
-          f"{list(strides)} {k4_ms:.4f} ms (plain {k4_plain:.4f} ms)")
-    report["eaw_disocclusion"] = dict(max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain)
-    report["eaw_stage"] = dict(max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain)
+
+def run_config(name, cfg, frames, per_frame):
+    """One Cornell configuration through the session API: a warm-up frame,
+    then `frames` frames (render_loop with accumulate for a loop config)
+    with the counts reset just before; checks launches and the image."""
+    import torch
+
+    from capsaicin_tpu_torch import kernels as K
+
+    cfg = dict(cfg)
+    loop = cfg.pop("loop", None)
+    width, height = cfg["width"], cfg["height"]
+    session = make_session(**cfg, device="cuda")
+    session.render_async()
+    torch.cuda.synchronize()
+    K.reset_counts()
+    t0 = time.perf_counter()
+    if loop:
+        display = session.render_loop(loop, chunk=loop, accumulate=True)
+    else:
+        for _ in range(frames):
+            display = session.render_async()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / frames
+    launches = {k.name: k.launches for k in K.REGISTRY}
+    check_launches(launches, per_frame, frames, name)
+    check_image(display.cpu().numpy(), (height, width, 3), name)
+    o = session.options
+    rays = rays_per_frame(width, height, o.num_diffuse_bounces, o.lowres_indirect, o.spp)
+    print(f"{name} {width}x{height}: {ms:.2f} ms/frame over {frames} frames = "
+          f"{rays / ms / 1e3:.2f} Mrays/s ({rays} rays/frame); launches {launches}")
+    return launches
 
 
 def main() -> int:
@@ -203,7 +372,7 @@ def main() -> int:
     import numpy as np
 
     from capsaicin_tpu_torch import kernels as K
-    # importing registers the kernels, in the order K1, K2, K3, K4
+    # importing registers the kernels: K1, K2, then K3-K6
     from capsaicin_tpu_torch.ops import static  # noqa: F401
     from capsaicin_tpu_torch.ops import lookup, stencil  # noqa: F401
 
@@ -227,7 +396,8 @@ def main() -> int:
     compare_trace(session, report)
     compare_stencils(session, report)
 
-    # 4. the 1080p frame through the session API, counting launches
+    # 4. the flagship, gi1080 with default options, through the session
+    # API, counting launches; then PR 1's gather=False path, shortly
     session.reset()
     torch.cuda.synchronize()
     K.reset_counts()
@@ -239,37 +409,51 @@ def main() -> int:
         display = session.render_async()
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = {k.name: k.launches for k in K.REGISTRY}
-    per_frame = {"static_trace": 4, "hit_attributes": 3, "eaw_disocclusion": 1, "eaw_stage": 4}
-    print(f"launches over {FRAMES} frames: {launches}")
-    for name, n in per_frame.items():
-        check(launches[name] == n * FRAMES, f"{name}: {launches[name]} launches, "
-              f"expected {n * FRAMES}")
-    img = display.cpu().numpy()
-    check(img.shape == (H, W, 3), f"display shape {img.shape}")
-    check(bool(np.isfinite(img).all()), "display has non-finite pixels")
-    sky = np.float32([0.7, 0.7, 0.85]) ** (1.0 / 2.2)
-    check(bool(np.abs(img[0, 0] - sky).max() < 1e-3), f"corner pixel {img[0, 0]} is not the sky {sky}")
+    path_launches = {k.name: k.launches for k in K.REGISTRY}
+    print(f"launches over {FRAMES} frames: {path_launches}")
+    check_launches(path_launches, FLAGSHIP_LAUNCHES, FRAMES, "gi1080")
+    check_image(display.cpu().numpy(), (H, W, 3), "gi1080")
     ms = (t_end - t_steady) * 1e3 / (FRAMES - 1)
     rays = rays_per_frame(W, H, session.options.num_diffuse_bounces)
-    print(f"1080p frame: first {(t_steady - t_first) * 1e3:.2f} ms, then {ms:.2f} ms/frame "
-          f"over {FRAMES - 1} frames = {rays / ms / 1e3:.2f} Mrays/s ({rays} rays/frame)")
+    print(f"gi1080 1080p frame: first {(t_steady - t_first) * 1e3:.2f} ms, then {ms:.2f} "
+          f"ms/frame over {FRAMES - 1} frames = {rays / ms / 1e3:.2f} Mrays/s "
+          f"({rays} rays/frame)")
+    del session
+    run_config("gi1080_no_gather", dict(width=W, height=H, options=dict(gather=False)), 3,
+               dict(FLAGSHIP_LAUNCHES, spatial_gather=0))
 
-    # 5. kernel path against the CPU path, end to end
-    images = {}
-    for device in ("cuda", "cpu"):
-        small = make_session(SMALL, SMALL, device)
-        for _ in range(SMALL_FRAMES):
-            images[device] = small.render()
-    rmse = float(np.sqrt(np.mean((images["cuda"] - images["cpu"]) ** 2)))
-    print(f"{SMALL}x{SMALL}, {SMALL_FRAMES} frames: display RMSE CUDA vs CPU {rmse:.3g}")
-    check(rmse <= RMSE_BAR, f"display RMSE {rmse} above {RMSE_BAR}")
+    # 4b. the other Cornell configurations of bench.py through the session API
+    for name, cfg, frames, per_frame in CONFIGS:
+        launches = run_config(name, cfg, frames, per_frame)
+        for kernel, path in PATH_OF.items():
+            if path == name:
+                path_launches[kernel] = launches[kernel]
+    for name, n in path_launches.items():
+        check(n > 0, f"{name} was never launched on its path")
+
+    # 5. the kernel path against the CPU path, end to end
+    for what, cfg in (("default", dict()),
+                      ("lowres_indirect spp=2, textured",
+                       dict(options=dict(lowres_indirect=True, spp=2), scene="textured")),
+                      ('eaw_fused="1" eaw_bf16', dict(options=dict(eaw_fused="1", eaw_bf16=True)))):
+        images = {}
+        for device in ("cuda", "cpu"):
+            small = make_session(SMALL, SMALL, device, **cfg)
+            for _ in range(SMALL_FRAMES):
+                images[device] = small.render()
+        rmse = float(np.sqrt(np.mean((images["cuda"] - images["cpu"]) ** 2)))
+        print(f"{SMALL}x{SMALL} {what}, {SMALL_FRAMES} frames: display RMSE CUDA vs CPU "
+              f"{rmse:.3g}")
+        check(rmse <= RMSE_BAR, f"{what}: display RMSE {rmse} above {RMSE_BAR}")
 
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-             launches=launches[k.name], **report[k.name])
+             launches=path_launches[k.name], path=PATH_OF.get(k.name, "gi1080"),
+             **report[k.name])
         for k in K.REGISTRY
     ]
+    check(len(kernels) == 6, f"{len(kernels)} kernels registered, expected 6")
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))

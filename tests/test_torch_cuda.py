@@ -1,4 +1,8 @@
-"""The port's CUDA kernels against their plain versions on the card.
+"""The port's CUDA kernels against their plain versions on the card, in
+float32 (rtol 1e-3, atol 1e-4) and in bf16 storage (max abs err <= 2e-2
+and mean abs err <= 1e-3: a float32 sum taken in another order can flip a
+bf16 rounding by an ulp), the launches of a default-options frame, and
+frames free of host syncs.
 
 Marked `cuda`: each test skips, with the reason, where CUDA is unavailable
 (the decision is taken inside the fixture, never at import). On a machine
@@ -32,11 +36,31 @@ def dev():
     return torch.device("cuda")
 
 
-def _session(w, h, device):
-    s = RenderSession(w, h, options=RenderOptions(gather=False), device=device)
+def _session(w, h, device, **kw):
+    s = RenderSession(w, h, options=RenderOptions(**kw), device=device)
     s.set_camera(make_camera("cornell", w, h))
     s.set_scene(build_scene(cornell_box()))
     return s
+
+
+def _bf16_close(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs()
+    assert float(err.max()) <= 2e-2 and float(err.mean()) <= 1e-3, (float(err.max()),
+                                                                    float(err.mean()))
+
+
+def _stencil_inputs(dev, h, w, seed):
+    rng = np.random.default_rng(seed)
+    color4 = torch.from_numpy(rng.random((h, w, 4), dtype=np.float32) * 2).to(dev)
+    n = rng.normal(size=(h, w, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    depth = rng.random((h, w), dtype=np.float32) * 20 + 1
+    depth[rng.random((h, w)) < 0.1] = 0
+    geo = torch.from_numpy(np.concatenate([n, depth[..., None]], -1)).to(dev)
+    mom = torch.from_numpy(rng.random((h, w, 3), dtype=np.float32)).to(dev)
+    mom[..., 2] = torch.from_numpy(rng.integers(0, 20, (h, w)).astype(np.float32)).to(dev)
+    return color4, geo, mom
 
 
 def test_static_trace_and_hit_attributes(dev):
@@ -54,24 +78,16 @@ def test_static_trace_and_hit_attributes(dev):
     torch.testing.assert_close(t, tp, rtol=0, atol=1e-5)
     hit = static.static_trace(s.accel, o, d, 0.0, tmax, True)
     assert torch.equal(hit, pp >= 0)
-    got = lookup.hit_attributes(s.attr_table, prim, u, v)
-    want = lookup.hit_attributes_plain(s.attr_table, prim, u, v)
+    got = lookup.hit_attributes(s.shade.table, prim, u, v)
+    want = lookup.hit_attributes_plain(s.shade.table, prim, u, v)
     for key in want:
         torch.testing.assert_close(got[key], want[key], rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("stride", [1, 3, 5, 7])
 def test_eaw_kernels(dev, stride):
-    rng = np.random.default_rng(stride)
     h, w = 67, 129
-    color4 = torch.from_numpy(rng.random((h, w, 4), dtype=np.float32) * 2).to(dev)
-    n = rng.normal(size=(h, w, 3)).astype(np.float32)
-    n /= np.linalg.norm(n, axis=-1, keepdims=True)
-    depth = rng.random((h, w), dtype=np.float32) * 20 + 1
-    depth[rng.random((h, w)) < 0.1] = 0
-    geo = torch.from_numpy(np.concatenate([n, depth[..., None]], -1)).to(dev)
-    mom = torch.from_numpy(rng.random((h, w, 3), dtype=np.float32)).to(dev)
-    mom[..., 2] = torch.from_numpy(rng.integers(0, 20, (h, w)).astype(np.float32)).to(dev)
+    color4, geo, mom = _stencil_inputs(dev, h, w, stride)
     s = default_settings()
     sig = (s.eaw_normal_sigma, s.eaw_depth_sigma, s.eaw_luma_sigma)
     torch.testing.assert_close(stencil.eaw_disocclusion(color4, geo, mom, *sig),
@@ -84,10 +100,72 @@ def test_eaw_kernels(dev, stride):
             rtol=1e-3, atol=1e-4)
 
 
-def test_render_async_never_waits_for_the_device(dev):
+@pytest.mark.parametrize("hw", [(67, 129), (540, 960)], ids=["odd", "lowres1080"])
+def test_spatial_gather_kernel(dev, hw):
+    """K5 at odd sizes and at the half-resolution shape of a 1080p frame."""
+    h, w = hw
+    color4, geo, _ = _stencil_inputs(dev, h, w, h)
+    indirect = color4[..., :3].contiguous()
+    s = default_settings()
+    sig = (s.gather_normal_sigma, s.gather_depth_sigma, s.gather_luma_sigma)
+    before = stencil.K5.launches
+    got = stencil.spatial_gather(indirect, geo, *sig)
+    assert stencil.K5.launches == before + 1
+    torch.testing.assert_close(got, stencil.spatial_gather_plain(indirect, geo, *sig),
+                               rtol=1e-3, atol=1e-4)
+    ib, gb = indirect.bfloat16(), geo.bfloat16()
+    _bf16_close(stencil.spatial_gather(ib, gb, *sig), stencil.spatial_gather_plain(ib, gb, *sig))
+
+
+@pytest.mark.parametrize("strides", [(1, 3), (5, 7)])
+def test_eaw_pair_and_bf16_kernels(dev, strides):
+    """K6 against two plain stages, and the bf16 instances of K3, K4 and K6
+    against their bf16 plain versions."""
+    h, w = 67, 129
+    color4, geo, mom = _stencil_inputs(dev, h, w, strides[1])
+    s = default_settings()
+    sig = (s.eaw_normal_sigma, s.eaw_depth_sigma, s.eaw_luma_sigma)
+    for use_variance in (True, False):
+        before = stencil.K6.launches
+        got = stencil.eaw_pair(color4, geo, *strides, use_variance, *sig)
+        assert stencil.K6.launches == before + 1
+        torch.testing.assert_close(
+            got, stencil.eaw_pair_plain(color4, geo, *strides, use_variance, *sig),
+            rtol=1e-3, atol=1e-4)
+    cb, gb, mb = color4.bfloat16(), geo.bfloat16(), mom.bfloat16()
+    _bf16_close(stencil.eaw_pair(cb, gb, *strides, True, *sig),
+                stencil.eaw_pair_plain(cb, gb, *strides, True, *sig))
+    _bf16_close(stencil.eaw_stage(cb, gb, strides[1], True, *sig),
+                stencil.eaw_stage_plain(cb, gb, strides[1], True, *sig))
+    _bf16_close(stencil.eaw_disocclusion(cb, gb, mb, *sig),
+                stencil.eaw_disocclusion_plain(cb, gb, mb, *sig))
+
+
+@pytest.mark.parametrize("kw, per_frame", [
+    (dict(), dict(static_trace=4, hit_attributes=3, spatial_gather=1, eaw_disocclusion=1,
+                  eaw_stage=4, eaw_pair=0)),
+    (dict(eaw_fused="1"), dict(eaw_stage=0, eaw_pair=2)),
+    (dict(eaw_fused="13", eaw_bf16=True), dict(eaw_stage=2, eaw_pair=1, spatial_gather=1)),
+    (dict(lowres_indirect=True, spp=2), dict(static_trace=6, hit_attributes=5,
+                                              spatial_gather=1)),
+], ids=["default", "fused1", "fused13_bf16", "lowres_spp2"])
+def test_frame_launch_counts(dev, kw, per_frame):
+    s = _session(64, 48, dev, **kw)
+    kernels.reset_counts()
+    for _ in range(2):
+        s.render_async()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.REGISTRY}
+    for name, n in per_frame.items():
+        assert launches[name] == 2 * n, (name, launches)
+
+
+@pytest.mark.parametrize("kw", [dict(gather=False), dict(), dict(lowres_indirect=True, spp=2)],
+                         ids=["no_gather", "default", "lowres_spp2"])
+def test_render_async_never_waits_for_the_device(dev, kw):
     """After the first frame has uploaded the per-device constants, a frame
     makes no call that synchronises with the device."""
-    s = _session(64, 48, dev)
+    s = _session(64, 48, dev, **kw)
     s.render_async()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -104,10 +182,11 @@ def test_profile_attributes_device_time_to_passes(dev):
 
     r = profile_frames(_session(160, 90, dev), frames=2, warmup=1, top=1000)
     assert 0.0 < r["busy_ms"] <= r["wall_ms"]
-    for name in ("trace_primary", "indirect_gi", "denoise"):
+    for name in ("trace_primary", "indirect_gi", "spatial_gather", "denoise"):
         assert r["passes_ms"][name] > 0.0, name
     assert sum(r["passes_ms"].values()) <= r["busy_ms"] + 1e-6  # one stream: no overlap
-    assert any(row["name"].startswith("eaw_stage_kernel") for row in r["top"])
+    # kernel templates are named by their signature, "void eaw_stage_kernel<float>(...)"
+    assert any("eaw_stage_kernel" in row["name"] for row in r["top"])
 
 
 def test_cuda_frames_match_cpu_frames(dev):

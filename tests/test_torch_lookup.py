@@ -10,13 +10,14 @@ from capsaicin_tpu.ops.pallas_lookup import table_lookup
 from capsaicin_tpu.render import shading as jshading
 from capsaicin_tpu.scene import build_scene as jbuild_scene
 from capsaicin_tpu.scene.procedural import cornell_box as jcornell_box
+from capsaicin_tpu.scene.procedural import cornell_box_textured as jcornell_box_textured
 from capsaicin_tpu_torch import convert
 from capsaicin_tpu_torch.ops import lookup
 from capsaicin_tpu_torch.render import shading as tshading
 
 
-def _inputs(rng, n=5000):
-    scene = jbuild_scene(jcornell_box())
+def _inputs(rng, n=5000, textured=False):
+    scene = jbuild_scene(*jcornell_box_textured()) if textured else jbuild_scene(jcornell_box())
     prim = rng.integers(-1, 40, n).astype(np.int32)
     u = rng.random(n, dtype=np.float32)
     v = (rng.random(n, dtype=np.float32) * (1.0 - u)).astype(np.float32)
@@ -60,9 +61,9 @@ def test_fetch_hit_attributes_matches_jax(rng):
     scene, prim, u, v = _inputs(rng)
     want = jshading.fetch_hit_attributes(jax_scene(scene), jnp.asarray(prim), jnp.asarray(u),
                                          jnp.asarray(v))
-    table = tshading.tri_attr_table(convert.scene_from_numpy(scene))
+    shade = tshading.shading_scene(convert.scene_from_numpy(scene))
     before = lookup.K2.launches
-    got = tshading.fetch_hit_attributes(table, torch.from_numpy(prim), torch.from_numpy(u),
+    got = tshading.fetch_hit_attributes(shade.table, torch.from_numpy(prim), torch.from_numpy(u),
                                         torch.from_numpy(v))
     assert lookup.K2.launches == before  # CPU tensors take the plain version
     assert set(got) == set(want)
@@ -71,5 +72,22 @@ def test_fetch_hit_attributes_matches_jax(rng):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), rtol=1e-6,
                                    atol=1e-6, err_msg=key)
     kd_want = np.asarray(jshading.material_from_hit(jax_scene(scene), want))
-    np.testing.assert_allclose(tshading.material_from_hit(got).numpy(), kd_want,
+    np.testing.assert_allclose(tshading.material_from_hit(shade, got).numpy(), kd_want,
                                rtol=1e-6, atol=1e-6)
+
+
+def test_textured_material_matches_jax(rng):
+    """The albedo of hits on the textured Cornell box (checker floor: the
+    atlas fetch with the v-flip) against the JAX package's, for both
+    material sources."""
+    scene, prim, u, v = _inputs(rng, textured=True)
+    want = jshading.fetch_hit_attributes(jax_scene(scene), jnp.asarray(prim), jnp.asarray(u),
+                                         jnp.asarray(v))
+    shade = tshading.shading_scene(convert.scene_from_numpy(scene))
+    got = tshading.fetch_hit_attributes(shade.table, torch.from_numpy(prim), torch.from_numpy(u),
+                                        torch.from_numpy(v))
+    assert tshading.has_textures(shade) and int((got["tex"] >= 0).sum()) > 0
+    for use_kd in (False, True):
+        kd_want = np.asarray(jshading.material_from_hit(jax_scene(scene), want, use_kd))
+        np.testing.assert_allclose(tshading.material_from_hit(shade, got, use_kd).numpy(),
+                                   kd_want, rtol=1e-6, atol=1e-6)

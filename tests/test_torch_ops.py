@@ -152,3 +152,20 @@ def test_resample_matches_jax(rng):
     want = jres._gather_pixels(jnp.asarray(img), jnp.asarray(ix), jnp.asarray(iy))
     got = tres._gather_pixels(torch.from_numpy(img), torch.from_numpy(ix), torch.from_numpy(iy))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("shape", [(6, 10), (5, 7), (1, 3)])
+def test_upsample2x_and_bilinear_match_jax(rng, shape):
+    """upsample2x_bilinear (the UPSCALE2X color fetch) and sample_bilinear
+    against the JAX package; upsample2x is sample_bilinear at the doubled
+    grid's own pixel centres."""
+    h, w = shape
+    img = rng.random((h, w, 3), dtype=np.float32)
+    up = tres.upsample2x_bilinear(torch.from_numpy(img))
+    _close(up, jres.upsample2x_bilinear(jnp.asarray(img)))
+    xy = tcam.pixel_grid(2 * w, 2 * h).float()
+    uv = (xy + 0.5) / torch.tensor([2.0 * w, 2.0 * h])
+    _close(tres.sample_bilinear(torch.from_numpy(img), uv, (w, h)), up.numpy())
+    uv = (rng.random((40, 2), dtype=np.float32) * 1.2 - 0.1).astype(np.float32)
+    _close(tres.sample_bilinear(torch.from_numpy(img), torch.from_numpy(uv), (w, h)),
+           jres.sample_bilinear(jnp.asarray(img), jnp.asarray(uv), (w, h)))

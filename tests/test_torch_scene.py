@@ -101,3 +101,52 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=repo)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("which", ["textured", "multitextured"])
+def test_textured_scenes_match_jax(which):
+    """The textured Cornell boxes (one 128x128 checker; or with a 48x96
+    stripe texture too, padded into one atlas) and the rgba8 atlas, whose
+    int32 bits are the JAX package's uint32 ones."""
+    from capsaicin_tpu.scene import procedural as jprocedural
+    from capsaicin_tpu.scene.scene import quantize_atlas as jquantize_atlas
+    from capsaicin_tpu_torch.scene import procedural
+    from capsaicin_tpu_torch.scene.scene import quantize_atlas
+
+    want = jbuild_scene(*getattr(jprocedural, f"cornell_box_{which}")())
+    got = build_scene(*getattr(procedural, f"cornell_box_{which}")())
+    for field in Scene._fields:
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field), err_msg=field)
+    assert got.atlas.dtype == np.float32
+    q, jq = quantize_atlas(got), jquantize_atlas(want)
+    assert q.atlas.dtype == np.int32 and jq.atlas.dtype == np.uint32
+    np.testing.assert_array_equal(q.atlas, jq.atlas.view(np.int32))
+    assert quantize_atlas(q) is q
+    np.testing.assert_array_equal(convert.scene_from_numpy(jq).atlas.numpy(), q.atlas)
+
+
+def test_rgba8_atlas_samples_as_the_float_atlas(rng):
+    """On 8-bit-grid textures the int32 rgba8 atlas samples bit-equal to
+    the float32 atlas, and both equal the JAX package's sample_atlas, for
+    any uv (wrapping outside [0,1]) and texture id (clamped)."""
+    from capsaicin_tpu.render import shading as jshading
+    from capsaicin_tpu.scene.scene import quantize_atlas as jquantize_atlas
+    from capsaicin_tpu_torch.render import shading
+    from capsaicin_tpu_torch.scene.procedural import cornell_box_multitextured
+    from capsaicin_tpu_torch.scene.scene import quantize_atlas
+
+    scene = build_scene(*cornell_box_multitextured())
+    uv = (rng.random((500, 2), dtype=np.float32) * 3.0 - 1.0).astype(np.float32)
+    tex = rng.integers(-1, 3, 500).astype(np.int32)
+    sizes = torch.from_numpy(scene.atlas_size)
+
+    def sample(atlas):
+        return shading.sample_atlas(torch.from_numpy(atlas), sizes, torch.from_numpy(tex),
+                                    torch.from_numpy(uv)).numpy()
+
+    f32, rgba8 = sample(scene.atlas), sample(quantize_atlas(scene).atlas)
+    np.testing.assert_array_equal(rgba8, f32)
+    for atlas in (scene.atlas, jquantize_atlas(scene).atlas):
+        want = jshading.sample_atlas(jnp.asarray(atlas), jnp.asarray(scene.atlas_size),
+                                     jnp.asarray(tex), jnp.asarray(uv))
+        np.testing.assert_allclose(f32, np.asarray(want), rtol=0, atol=1e-6)

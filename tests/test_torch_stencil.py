@@ -1,8 +1,10 @@
-"""The port's EAW denoise chain (ops/stencil.py, kernels K3 and K4 in their
-plain versions on the CPU) against the JAX package: the Pallas chain
-(pallas_stencil.denoise_chain, interpret mode off the TPU) and the jnp
-passes. Odd sizes exercise the borders. Tolerance rtol 1e-3, atol 1e-4,
-as tests/test_pallas_stencil.py holds the Pallas chain to the jnp one."""
+"""The port's EAW denoise chain (ops/stencil.py, kernels K3, K4 and K6 in
+their plain versions on the CPU) against the JAX package: the Pallas chain
+(pallas_stencil.denoise_chain, interpret mode off the TPU), sequential and
+fused, in float32 and bf16 storage, and the jnp passes. Odd sizes exercise
+the borders. Tolerance rtol 1e-3, atol 1e-4 in float32, as
+tests/test_pallas_stencil.py holds the Pallas chain to the jnp one; bf16
+tolerances are stated where they are used."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -105,8 +107,53 @@ def test_disocclusion_matches_jnp(buffers):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _pallas_chain(buffers, jopt):
+    color4, oct, depth, moments4 = buffers
+    return np.asarray(pallas_stencil.denoise_chain(
+        jnp.asarray(color4), jm.oct_decode(jnp.asarray(oct)), jnp.asarray(depth),
+        jnp.asarray(moments4), jdefault_settings(), jopt))
+
+
 def test_unported_chain_variants_raise(buffers):
-    with pytest.raises(NotImplementedError):
-        _port_chain(buffers, RenderOptions(eaw_fused="1"))
-    with pytest.raises(NotImplementedError):
-        _port_chain(buffers, RenderOptions(eaw_bf16=True))
+    """The fused chain eaw_fused="1" (K3, then K6 for (1, 3) and (5, 7)) in
+    float32 against the Pallas chain with the same option."""
+    before = stencil.K6.launches
+    got = _port_chain(buffers, RenderOptions(eaw_fused="1"))
+    assert stencil.K6.launches == before  # CPU tensors take the plain version
+    np.testing.assert_allclose(
+        got, _pallas_chain(buffers, JOptions(eaw_fused="1", eaw_bf16=False)), **TOL)
+
+
+def test_fused_13_bf16_chain_matches_pallas_chain(buffers):
+    """eaw_fused="13" (K6 for (1, 3), then K4 at 5 and 7) with bf16 storage
+    against the Pallas chain with the same options. Tolerance max abs err
+    <= 2e-2 and mean abs err <= 1e-3: both round at the same points, but a
+    float32 sum in another order can flip a bf16 rounding by an ulp (about
+    4e-3 relative), and the flip carries down the chain."""
+    got = _port_chain(buffers, RenderOptions(eaw_fused="13", eaw_bf16=True))
+    want = _pallas_chain(buffers, JOptions(eaw_fused="13", eaw_bf16=True))
+    assert got.dtype == np.float32
+    err = np.abs(got - want)
+    assert err.max() <= 2e-2 and err.mean() <= 1e-3, (err.max(), err.mean())
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_pair_is_two_stages_unrounded_between(buffers, bf16):
+    """K6's plain version is the stage at stride_a and the stage at
+    stride_b with the intermediate in float32: exactly so in float32; in
+    bf16 it differs from two bf16 stages by the one rounding it skips."""
+    color4, oct, depth, _ = buffers
+    dt = torch.bfloat16 if bf16 else torch.float32
+    s = convert.settings_from_numpy(jdefault_settings())
+    sig = (s.eaw_normal_sigma, s.eaw_depth_sigma, s.eaw_luma_sigma)
+    normal = torch.tensor(np.asarray(jm.oct_decode(jnp.asarray(oct))))
+    geo = stencil.pack_geo(normal, torch.from_numpy(depth), dt)
+    col = torch.from_numpy(color4).to(dt)
+    pair = stencil.eaw_pair(col, geo, 5, 7, True, *sig)
+    assert pair.dtype == dt
+    mid = stencil.eaw_stage(col.float(), geo, 5, True, *sig)
+    np.testing.assert_array_equal(
+        pair.float().numpy(), stencil.eaw_stage(mid, geo, 7, True, *sig).to(dt).float().numpy())
+    rounded_twice = stencil.eaw_stage(stencil.eaw_stage(col, geo, 5, True, *sig), geo, 7, True, *sig)
+    err = (pair.float() - rounded_twice.float()).abs()
+    assert float(err.max()) <= 2e-2 and float(err.mean()) <= 1e-3
