@@ -14,7 +14,6 @@ import torch
 from .. import kernels as K
 from . import mathops as m
 
-MAX_TABLE_ROWS = 128
 TABLE_COLS = 29
 
 K2 = K.register(K.Kernel(
@@ -44,14 +43,16 @@ def hit_attributes_plain(table, prim, u, v):
 def hit_attributes(table, prim, u, v):
     """(prim [N] int32, u [N], v [N]) -> dict of position [N,3], shading
     normal [N,3], texcoord [N,2], kd [N,3], texture id [N] and mesh id
-    [N]. K2 on CUDA tensors, its plain version on CPU tensors."""
+    [N]. K2 on CUDA tensors, its plain version on CPU tensors. K2 reads a
+    table of up to 128 rows from shared memory and a larger one from
+    device memory; its launcher chooses by the row count."""
     if K.on_cpu(prim):
         return hit_attributes_plain(table, prim, u, v)
     dev = prim.device
     n = prim.shape[0]
     rows = table.shape[0]
-    if not 1 <= rows <= MAX_TABLE_ROWS:
-        raise ValueError(f"table has {rows} rows; K2 takes 1..{MAX_TABLE_ROWS}")
+    if rows < 1:
+        raise ValueError("K2 needs a table of at least one row")
     u = u.contiguous()
     v = v.contiguous()
     K.check_cuda(prim, "prim", torch.int32, (n,), dev)

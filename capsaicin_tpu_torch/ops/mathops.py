@@ -27,14 +27,27 @@ def const(values, device) -> torch.Tensor:
     return _const(arr.shape, tuple(arr.ravel().tolist()), str(torch.device(device)))
 
 
+def sum_last(x, keepdim: bool = False):
+    """Sum over the (short) trailing axis, left to right. A reduction
+    kernel adds in another order on the GPU than on the CPU, and the last
+    ulp of a ray direction moves hits, shadow tests and reprojection tests
+    on curved geometry; adding the components in a fixed order gives both
+    devices the same bits."""
+    parts = x.unbind(-1)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out.unsqueeze(-1) if keepdim else out
+
+
 def dot(a, b):
     """Batched dot product over the trailing axis."""
-    return (a * b).sum(-1)
+    return sum_last(a * b)
 
 
 def normalize(v):
     """Normalize over the trailing axis."""
-    return v / torch.sqrt((v * v).sum(-1, keepdim=True))
+    return v / torch.sqrt(sum_last(v * v, keepdim=True))
 
 
 def cross(a, b):
@@ -57,7 +70,7 @@ def _sign(v):
 
 def oct_encode(n):
     """Unit vector [...,3] -> [...,2] in [0,1]; math_functions.h:31-59."""
-    n = n / n.abs().sum(-1, keepdim=True)
+    n = n / sum_last(n.abs(), keepdim=True)
     xy = n[..., :2]
     wrapped = (1.0 - xy.flip(-1).abs()) * _sign(xy)
     xy = torch.where(n[..., 2:3] >= 0.0, xy, wrapped)

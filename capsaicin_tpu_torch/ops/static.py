@@ -26,22 +26,27 @@ K1 = K.register(K.Kernel(
 
 
 class StaticScene:
-    """Triangles packed as [T,9] rows (v0, e1 = v1-v0, e2 = v2-v0)."""
+    """Triangles packed as [T,9] rows (v0, e1 = v1-v0, e2 = v2-v0): the
+    input of K1 and of the brute-force K8 (ops.brute)."""
 
     def __init__(self, tris: torch.Tensor):
         self.tris = tris
         self.n_tris = tris.shape[0]
 
 
-def build_static(tris) -> StaticScene:
-    """tris [T,3,3] (T <= MAX_STATIC_TRIS) -> the packed scene; prim ids
-    are the input triangle indices."""
+def pack_triangles(tris) -> StaticScene:
+    """tris [T,3,3] -> the packed scene, any T; prim ids are the input
+    triangle indices."""
     tris = torch.as_tensor(tris, dtype=torch.float32)
-    if tris.shape[0] > MAX_STATIC_TRIS:
-        raise ValueError(f"static kernel takes at most {MAX_STATIC_TRIS} triangles")
     v0 = tris[:, 0]
-    rows = torch.cat([v0, tris[:, 1] - v0, tris[:, 2] - v0], -1)
-    return StaticScene(rows.contiguous())
+    return StaticScene(torch.cat([v0, tris[:, 1] - v0, tris[:, 2] - v0], -1).contiguous())
+
+
+def build_static(tris) -> StaticScene:
+    """pack_triangles for K1, which takes at most MAX_STATIC_TRIS."""
+    if len(tris) > MAX_STATIC_TRIS:
+        raise ValueError(f"static kernel takes at most {MAX_STATIC_TRIS} triangles")
+    return pack_triangles(tris)
 
 
 def static_trace_plain(tris, origins, dirs, tmin: float, tmax, any_hit: bool):

@@ -124,7 +124,7 @@ def direct_lighting(scene, any_fn, camera, gb, width, height, frame_count: int,
     shadow_hit = any_fn(p, ldir, shading.SHADOW_TMIN, stmax)
     di = torch.where(shadow_hit[:, None], 0.0, unshadowed)
 
-    depth = torch.sqrt(((camera.position - p) ** 2).sum(-1))
+    depth = torch.sqrt(m.dot(camera.position - p, camera.position - p))
     invalid = miss | black
     direct = torch.where(miss[:, None], _sky(p.device), torch.where(black[:, None], 0.0, di))
     albedo = torch.where(miss[:, None], 1.0, torch.where(black[:, None], 0.0, kd))
@@ -185,17 +185,19 @@ def _feedback_fetch(p, prev_camera, combined_history, prev_depth, width, height)
         torch.where(di == 0, c00[:, 3], c10[:, 3]),
         torch.where(di == 0, c01[:, 3], c11[:, 3]),
     )
-    cur_d = torch.sqrt(((p - prev_camera.position) ** 2).sum(-1))
+    cur_d = torch.sqrt(m.dot(p - prev_camera.position, p - prev_camera.position))
     disocc = offscreen | ((prev_d - cur_d).abs() / cur_d.clamp_min(1e-20) > 0.05)
     return hist, disocc
 
 
 def indirect_gi(scene, closest_fn, any_fn, camera, prev_camera, gb, combined_history,
                 prev_nd, noise, width, height, frame_count: int, options: RenderOptions,
-                noise_frame=None):
+                noise_frame=None, closest_bounce_fn=None, any_bounce_fn=None):
     """The path loop of rt_indirect.hlsl:42-175 as a wavefront: all pixels
     advance through the bounces together, finished lanes masked. The last
     bounce's trace is never shaded in the reference and is skipped.
+    closest_bounce_fn and any_bounce_fn, where given, trace the bounce rays
+    and their NEE shadow rays (the ray-sorting wrappers of the BVH mode).
 
     noise_frame seeds the blue-noise sample set (frame_count by default);
     batched spp passes frame_count*spp + s, so each sample draws its own
@@ -242,8 +244,8 @@ def indirect_gi(scene, closest_fn, any_fn, camera, prev_camera, gb, combined_his
                 color = torch.where(reuse[:, None], color + throughput * hist, color)
                 active = active & disocc
             nee_live = active & (unshadowed > 0.0).any(-1)
-            shadow_hit = any_fn(p, ldir, shading.SHADOW_TMIN,
-                                torch.where(nee_live, shading.LIGHT_DISTANCE, -1.0))
+            shadow_hit = (any_bounce_fn or any_fn)(
+                p, ldir, shading.SHADOW_TMIN, torch.where(nee_live, shading.LIGHT_DISTANCE, -1.0))
             color = color + torch.where(
                 (nee_live & ~shadow_hit)[:, None], throughput * unshadowed, 0.0)
 
@@ -260,7 +262,7 @@ def indirect_gi(scene, closest_fn, any_fn, camera, prev_camera, gb, combined_his
         if bounce != 0:
             throughput = throughput * kd
         # inactive lanes trace with tmax < tmin: the trace retires them
-        hit = closest_fn(p, d, 1e-4, torch.where(active, 1e5, -1.0))
+        hit = (closest_bounce_fn or closest_fn)(p, d, 1e-4, torch.where(active, 1e5, -1.0))
         prim = torch.where(active, hit["prim"], -1)
         u, v = hit["u"], hit["v"]
 
@@ -378,7 +380,7 @@ def reproject_and_fetch_history(camera, prev_camera, nd, prev_nd, color_history,
     hit_pos = cam.reconstruct_world_position(camera, this_uv, depth)
     prev_uv = cam.calculate_image_plane_uv(prev_camera, hit_pos)
     prev_xy = resample.uv_to_xy(prev_uv, (width, height))
-    velocity = torch.sqrt((((prev_uv - this_uv) * wh) ** 2).sum(-1))
+    velocity = torch.sqrt(m.sum_last(((prev_uv - this_uv) * wh) ** 2))
     offscreen = ((prev_uv < 0.0) | (prev_uv > 1.0)).any(-1)
 
     packed = torch.cat(
@@ -450,7 +452,7 @@ def svgf_accumulate(color_in, nd, rep, prev_camera, width, height, frame_count: 
     fresh_moments = torch.stack([lum, lum * lum], -1)
     background = nd["depth"] < 1e-5
 
-    cur_closest = torch.sqrt(((rep["hit_pos"] - prev_camera.position) ** 2).sum(-1))
+    cur_closest = torch.sqrt(m.sum_last((rep["hit_pos"] - prev_camera.position) ** 2))
     disocclusion = (
         rep["offscreen"]
         | (frame_count == 0)

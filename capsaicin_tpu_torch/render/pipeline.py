@@ -89,8 +89,12 @@ def render_frame(
     height: int,
     options: RenderOptions,
     collect_aux: bool = False,
+    closest_bounce_fn: Callable = None,
+    any_bounce_fn: Callable = None,
 ):
     """One full frame of the scene's ShadingScene (shading.shading_scene).
+    closest_bounce_fn and any_bounce_fn, where given, trace the indirect
+    pass's bounce and NEE shadow rays in place of closest_fn and any_fn.
     Returns (display [H,W,3] gamma-encoded, new FrameState[, PassOutputs])."""
     frame_count = state.frame_count
     prev_camera = state.prev_camera
@@ -113,7 +117,8 @@ def render_frame(
             sample = passes.indirect_gi(
                 scene, closest_fn, any_fn, camera, prev_camera, gb, combined_history,
                 prev_nd, noise, width, height, frame_count, options,
-                noise_frame=frame_count * spp + s)
+                noise_frame=frame_count * spp + s, closest_bounce_fn=closest_bounce_fn,
+                any_bounce_fn=any_bounce_fn)
             indirect = sample if indirect is None else indirect + sample
         if spp > 1:
             indirect = indirect / spp

@@ -9,6 +9,7 @@ of the kernels' (and copies') intervals on the device, so overlapping
 work is not counted twice. Needs a CUDA session; run on a GPU:
 
     python -m capsaicin_tpu_torch.render.profiling --width 1920 --height 1080 --frames 5
+    python -m capsaicin_tpu_torch.render.profiling --scene colonnade --traversal bvh
 """
 
 from __future__ import annotations
@@ -94,20 +95,25 @@ def profile_frames(session, frames: int = 5, warmup: int = 2, top: int = 15) -> 
 
 def main(argv=None) -> int:
     from ..scene import build_scene
-    from ..scene.procedural import cornell_box, make_camera
+    from ..scene.procedural import colonnade, cornell_box, make_camera
     from .session import RenderSession
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--frames", type=int, default=5)
+    ap.add_argument("--scene", choices=("cornell", "colonnade"), default="cornell",
+                    help="the Cornell box (40 triangles) or the colonnade (~250k)")
+    ap.add_argument("--traversal", default="auto",
+                    help="static, brute, bvh or auto (static up to 128 triangles, else bvh)")
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args(argv)
-    session = RenderSession(args.width, args.height)
-    session.set_camera(make_camera("cornell", args.width, args.height))
-    session.set_scene(build_scene(cornell_box()))
+    session = RenderSession(args.width, args.height, traversal=args.traversal)
+    session.set_camera(make_camera(args.scene, args.width, args.height))
+    session.set_scene(build_scene(colonnade() if args.scene == "colonnade" else cornell_box()))
     result = profile_frames(session, frames=args.frames)
-    print(f"{result['device']} {args.width}x{args.height}: wall {result['wall_ms']:.3f} "
+    print(f"{result['device']} {args.scene} {args.width}x{args.height}, traversal "
+          f"{args.traversal}: wall {result['wall_ms']:.3f} "
           f"ms/frame, device busy {result['busy_ms']:.3f} ms/frame, "
           f"idle share {result['idle_share']:.3f}")
     for name, ms in result["passes_ms"].items():

@@ -21,7 +21,8 @@ from ..ops.camera import Camera, camera_to, default_camera
 from ..scene import textures
 from . import pipeline, shading
 from .settings import RenderOptions, Settings, default_settings
-from .traversal import build_accel, make_traversal, resolve_mode
+from .traversal import (build_accel, make_traversal, resolve_mode, with_ray_sorting,
+                        with_ray_sorting_any)
 
 
 class RenderSession:
@@ -54,6 +55,7 @@ class RenderSession:
         self.shade: Optional[shading.ShadingScene] = None
         self.accel = None
         self._trace = None
+        self._sorted_trace = None
         self.state: Optional[pipeline.FrameState] = None
 
     # -- scene ------------------------------------------------------------
@@ -65,6 +67,11 @@ class RenderSession:
         mode = resolve_mode(self.traversal_mode, scene_dev.tri_v0.shape[0])
         self.accel = build_accel(scene_dev, mode)
         self._trace = make_traversal(mode, self.accel)
+        # the BVH mode traces bounce rays sorted when options.sort_bounce_rays
+        # holds, as the JAX package does for its packet kernel
+        closest, any_hit = self._trace
+        self._sorted_trace = ((with_ray_sorting(closest), with_ray_sorting_any(any_hit))
+                              if mode == "bvh" else None)
         self.shade = shading.shading_scene(scene_dev)
         self.scene_dev = scene_dev
         self.reset()
@@ -128,9 +135,13 @@ class RenderSession:
         if camera is not None:
             self.set_camera(camera)
         closest, any_hit = self._trace
+        bounce = bounce_any = None
+        if self._sorted_trace is not None and self.options.sort_bounce_rays:
+            bounce, bounce_any = self._sorted_trace
         display, self.state = pipeline.render_frame(
             self.shade, closest, any_hit, self.camera, self.state, self.settings,
-            self.noise, self.width, self.height, self.options)
+            self.noise, self.width, self.height, self.options,
+            closest_bounce_fn=bounce, any_bounce_fn=bounce_any)
         return display
 
     def render_loop(self, frames: int, camera: Optional[Camera] = None, chunk: int = 16,

@@ -1,6 +1,7 @@
-"""The procedural Cornell boxes (plain and textured), their textures and
-the camera presets: the parts of capsaicin_tpu/scene/procedural.py that
-the renderer's configurations use, built with numpy and torch only."""
+"""The procedural Cornell boxes (plain and textured), their textures, the
+colonnade and the camera presets: the parts of
+capsaicin_tpu/scene/procedural.py that the renderer's configurations use,
+built with numpy and torch only."""
 
 from __future__ import annotations
 
@@ -132,6 +133,73 @@ def cornell_box_multitextured() -> Tuple[List[MeshData], dict]:
     return meshes, {"checker.png": checker_texture(), "stripes.png": stripe_texture()}
 
 
+def _uv_sphere(name: str, mat: Material, center, radius, nu: int, nv: int) -> MeshData:
+    """A latitude-longitude sphere of nu x nv quads (4 own vertices each)."""
+    mesh = MeshData(name=name)
+    mesh.material = mat
+    cx, cy, cz = center
+    base = 0
+    for i in range(nv):
+        for j in range(nu):
+            for (di, dj) in ((0, 0), (0, 1), (1, 1), (1, 0)):
+                theta = math.pi * (i + di) / nv
+                phi = 2 * math.pi * (j + dj) / nu
+                nx = math.sin(theta) * math.cos(phi)
+                ny = math.cos(theta)
+                nz = math.sin(theta) * math.sin(phi)
+                mesh.positions.extend((cx + radius * nx, cy + radius * ny, cz + radius * nz))
+                mesh.normals.extend((nx, ny, nz))
+                mesh.texcoords.extend(((j + dj) / nu, (i + di) / nv))
+            mesh.indices.extend([base, base + 1, base + 2, base, base + 2, base + 3])
+            base += 4
+    return mesh
+
+
+def colonnade(target_tris: int = 250_000, seed: int = 42) -> List[MeshData]:
+    """An open-air hall of columns, roof beams and spheres on a floor,
+    about `target_tris` triangles (249,190 at the default): the large-scene
+    stress case of BVH traversal. The sphere placement draws from
+    numpy's default_rng(seed) in a fixed order, so a seed gives the same
+    triangles wherever it runs."""
+    rng = np.random.default_rng(seed)
+    m_stone = Material("stone", kd=(0.6, 0.58, 0.55))
+    meshes: List[MeshData] = []
+
+    # floor and walls, 40 x 8 x 20, no roof: the only light is the sun
+    room = MeshData(name="room")
+    room.material = m_stone
+    _quad(room, (-20, 0, -10), (20, 0, -10), (20, 0, 10), (-20, 0, 10), (0, 1, 0))
+    _quad(room, (-20, 0, 10), (20, 0, 10), (20, 8, 10), (-20, 8, 10), (0, 0, -1))
+    _quad(room, (-20, 0, -10), (-20, 8, -10), (20, 8, -10), (20, 0, -10), (0, 0, 1))
+    _quad(room, (-20, 0, -10), (-20, 0, 10), (-20, 8, 10), (-20, 8, -10), (1, 0, 0))
+    _quad(room, (20, 0, -10), (20, 8, -10), (20, 8, 10), (20, 0, 10), (-1, 0, 0))
+    meshes.append(room)
+
+    budget = target_tris - 10
+    for k in range(13):  # roof beams: shadow stripes across the hall
+        meshes.append(_box(f"beam{k}", m_stone, (-18 + k * 3.0, 7.8, 0), (1.6, 0.4, 20.0)))
+        budget -= 12
+    for k in range(16):  # columns
+        x = -18 + (k % 8) * 5.0
+        z = -6 if k < 8 else 6
+        meshes.append(_box(f"column{k}", m_stone, (x, 2.5, z), (0.8, 5.0, 0.8)))
+        budget -= 12
+
+    # the spheres carry the triangle count
+    n_spheres = max(1, budget // (2 * 48 * 48))
+    placed = 0
+    while placed < n_spheres:
+        x = float(rng.uniform(-18, 18))
+        z = float(rng.uniform(-8, 8))
+        if x < -12 and z < -4:  # keep the "colonnade" camera's corner clear
+            continue
+        r = float(rng.uniform(0.4, 1.1))
+        y = float(rng.uniform(r, 6.0))
+        meshes.append(_uv_sphere(f"sphere{placed}", m_stone, (x, y, z), r, 48, 48))
+        placed += 1
+    return meshes
+
+
 def camera_preset(name: str = "cornell"):
     """Camera pose for a procedural scene, as float32 numpy arrays."""
     if name == "cornell":
@@ -142,7 +210,19 @@ def camera_preset(name: str = "cornell"):
             up=np.array([0.0, 1.0, 0.0], np.float32),
             focal_length=0.040,
         )
-    raise NotImplementedError(f"camera preset {name!r} is not ported yet (ROADMAP A9)")
+    if name == "colonnade":
+        # from the hall's corner, looking down its length
+        f = np.array([0.85, -0.22, 0.48])
+        f = f / np.linalg.norm(f)
+        r = np.cross(np.array([0.0, 1.0, 0.0]), f)
+        r /= np.linalg.norm(r)
+        return dict(
+            position=np.array([-17.5, 6.0, -7.5], np.float32),
+            right=r.astype(np.float32),
+            forward=f.astype(np.float32),
+            up=np.cross(f, r).astype(np.float32),
+        )
+    raise ValueError(f"unknown camera preset {name!r}")
 
 
 def make_camera(name: str, width: int, height: int, device="cpu"):

@@ -2,10 +2,15 @@
 """Smoke test of the PyTorch/CUDA port (capsaicin_tpu_torch) on one NVIDIA
 GPU: builds the CUDA kernels from csrc/, holds each (and its bf16-storage
 instance) against its plain PyTorch version at the shapes of the 1080p
-frame, renders the Cornell box at 1920x1080 with default options through
-the session API and checks that the frame went through every kernel,
-renders the other Cornell configurations of bench.py the same way, then
-holds small CUDA renders against the CPU path.
+frame, holds the BVH walk (K7) and the brute-force intersector (K8) to
+their plain versions on the full colonnade's 1080p rays, runs the walk
+microbenchmark (K9), renders the Cornell box at 1920x1080 with default
+options through the session API and checks that the frame went through
+every kernel, renders the other configurations of bench.py the same way
+(the colonnade through the BVH), then holds small CUDA renders against
+the CPU path. Every kernel's time stands beside its bound: the larger of
+its bytes over 3.35 TB/s and its operations over 67 TFLOP/s (the H100
+SXM's HBM rate and float32 rate).
 
     python3 chip_smoke.py
 
@@ -15,6 +20,7 @@ fails. The last line of its output is one JSON object naming the device.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -28,6 +34,16 @@ RMSE_BAR = 1e-3  # BASELINE.json's accuracy bar
 TOL = dict(rtol=1e-3, atol=1e-4)  # float32 kernels against their plain versions
 BF16_MAX, BF16_MEAN = 2e-2, 1e-3  # bf16 storage: one rounding may flip by an ulp
 SKY = (0.7, 0.7, 0.85)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+FP32_OPS_PER_S = 67e12
+# Operations counted per unit of work, for the bounds: a float32 add, mul,
+# min, max or compare is one, and so is a division, sqrt, powf or expf.
+OPS_BOX = 22  # slab test of one box: 6 sub, 6 mul, 6 min/max, 4 reductions
+OPS_TRI = 45  # Moller-Trumbore: crosses, dots, one division
+OPS_ATTR = 60  # K2: interpolation of P, N, UV and the normalisation
+OPS_TAP = 30  # a stencil tap: the normal/depth/luma weights and the sums
+OPS_MICROSTEP = 25  # K9: a box test and the step's arithmetic
+SUBSAMPLE = 65_536  # rays of the colonnade's sets the plain walk takes
 
 # Per-frame launches of the flagship frame (gi1080, default options)
 FLAGSHIP_LAUNCHES = {"static_trace": 4, "hit_attributes": 3, "spatial_gather": 1,
@@ -68,8 +84,21 @@ CONFIGS = [
     ("gi1080_eaw_bf16", dict(width=W, height=H, options=dict(eaw_bf16=True)), 8,
      dict(spatial_gather=1, eaw_disocclusion=1, eaw_stage=4, eaw_pair=0)),
 ]
-# The configuration whose run is the path of a kernel not on the flagship's
-PATH_OF = {"eaw_pair": "gi1080_eaw_fused1"}
+COLONNADE = dict(width=W, height=H, scene="colonnade", traversal="bvh")
+COLONNADE_LAUNCHES = dict(bvh_trace=4, hit_attributes=3, static_trace=0, brute_trace=0,
+                          spatial_gather=1, eaw_disocclusion=1, eaw_stage=4)
+CONFIGS += [
+    # bench.py:123: the ~250k-triangle colonnade, 1 bounce, traversal="bvh"
+    ("colonnade", COLONNADE, 8, COLONNADE_LAUNCHES),
+    ("colonnade_nosort", dict(COLONNADE, options=dict(sort_bounce_rays=False)), 8,
+     COLONNADE_LAUNCHES),
+    ("gi1080_brute", dict(width=W, height=H, traversal="brute"), 8,
+     dict(brute_trace=4, static_trace=0, bvh_trace=0, hit_attributes=3)),
+]
+# The configuration (or phase) whose run is the path of a kernel not on the
+# flagship's
+PATH_OF = {"eaw_pair": "gi1080_eaw_fused1", "bvh_trace": "colonnade",
+           "brute_trace": "gi1080_brute", "microstep": "microstep"}
 
 
 def check(cond, what: str):
@@ -93,6 +122,28 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def timed(fn):
+    """(fn(), its device time in ms) of one call, with no warm-up."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def rays_per_frame(width, height, bounces, lowres=False, spp=1):
     """Rays traced per frame, counted as bench.py:102 counts them: primary
     and direct shadow at every pixel, and per bounce and per spp sample one
@@ -102,28 +153,56 @@ def rays_per_frame(width, height, bounces, lowres=False, spp=1):
     return 2 * full + 2 * half * bounces * spp
 
 
-def make_session(width, height, device, options=None, scene="cornell", atlas_u32=False):
+@functools.lru_cache(maxsize=None)
+def host_scene(scene: str):
+    """The numpy Scene of a name: "cornell", "textured", "colonnade" (the
+    full ~250k triangles) or "colonnade20k" (colonnade(target_tris=20000))."""
+    from capsaicin_tpu_torch.scene import build_scene
+    from capsaicin_tpu_torch.scene.procedural import colonnade, cornell_box, cornell_box_textured
+
+    if scene == "textured":
+        return build_scene(*cornell_box_textured())
+    if scene == "colonnade":
+        return build_scene(colonnade())
+    if scene == "colonnade20k":
+        return build_scene(colonnade(target_tris=20_000))
+    return build_scene(cornell_box())
+
+
+def make_session(width, height, device, options=None, scene="cornell", atlas_u32=False,
+                 traversal="auto"):
+    """A session with the scene uploaded; its set_scene time (build and
+    upload, synchronised) in `session.setup_s`."""
+    import torch
+
     from capsaicin_tpu_torch.render.session import RenderSession
     from capsaicin_tpu_torch.render.settings import RenderOptions
-    from capsaicin_tpu_torch.scene import build_scene
-    from capsaicin_tpu_torch.scene.procedural import (
-        cornell_box, cornell_box_textured, make_camera)
+    from capsaicin_tpu_torch.scene.procedural import make_camera
     from capsaicin_tpu_torch.scene.scene import quantize_atlas
 
     session = RenderSession(width, height, options=RenderOptions(**(options or {})),
-                            device=device)
-    session.set_camera(make_camera("cornell", width, height))
-    host = build_scene(*cornell_box_textured()) if scene == "textured" else build_scene(
-        cornell_box())
+                            device=device, traversal=traversal)
+    session.set_camera(make_camera("colonnade" if scene.startswith("colonnade") else "cornell",
+                                   width, height))
+    host = host_scene(scene)
+    t0 = time.perf_counter()
     session.set_scene(quantize_atlas(host) if atlas_u32 else host)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    session.setup_s = time.perf_counter() - t0
     return session
 
 
-def check_image(img, shape, what):
+def check_image(img, shape, what, sky_corner=True):
+    """Shape and finite pixels; the sky in the corner pixel where the
+    camera sees it (the Cornell views), else an image that is not flat."""
     import numpy as np
 
     check(img.shape == shape, f"{what}: display shape {img.shape}")
     check(bool(np.isfinite(img).all()), f"{what}: display has non-finite pixels")
+    if not sky_corner:
+        check(float(img.std()) > 1e-2, f"{what}: a flat image")
+        return
     sky = np.float32(SKY) ** (1.0 / 2.2)
     check(bool(np.abs(img[0, 0] - sky).max() < 1e-3),
           f"{what}: corner pixel {img[0, 0]} is not the sky {sky}")
@@ -135,13 +214,50 @@ def check_launches(launches, per_frame, frames, what):
               f"{what}: {name} {launches[name]} launches, expected {n * frames}")
 
 
-def compare_trace(session, report):
-    """K1 (closest on primary rays, any-hit on shadow rays) and K2 against
-    their plain versions on the 1080p frame's rays."""
+def hold_hits(what, got, want, hits_only=False):
+    """Closest-hit results (t, u, v, prim) of two intersectors on the same
+    rays: prim may differ only on edge rays (either result within 1e-5 of
+    an edge) or equal-t rays (rtol 1e-4), on at most 1e-4 of the rays;
+    t/u/v within 1e-5 where prim matches (t where both hit, with
+    hits_only: the brute-force miss is 1e30, the others' tmax). Returns
+    the max abs error."""
     import torch
 
+    t, u, v, prim = got
+    tw, uw, vw, pw = want
+    n = prim.shape[0]
+    edge = torch.zeros_like(prim, dtype=torch.bool)
+    for pr, uu, vv in ((prim, u, v), (pw, uw, vw)):
+        edge |= (pr >= 0) & ((uu < 1e-5) | (vv < 1e-5) | (1.0 - uu - vv < 1e-5))
+    tie = (prim >= 0) & (pw >= 0) & ((t - tw).abs() <= 1e-4 * t.abs())
+    diff = prim != pw
+    n_diff = int(diff.sum())
+    print(f"{what}: {n} rays, {int((pw >= 0).sum())} hits, {n_diff} prim mismatches "
+          f"({int((diff & ~edge).sum())} off the edges, {int((diff & ~edge & ~tie).sum())} "
+          f"off the edges and ties)")
+    check(not bool((diff & ~edge & ~tie).any()), f"{what}: prim differs on a ray that is "
+          "neither an edge nor an equal-t ray")
+    check(n_diff <= 1e-4 * n, f"{what}: more than 1e-4 of rays differ in prim")
+    same = ~diff & (prim >= 0) if hits_only else ~diff
+    err = max(float((a - b)[same].abs().max()) if bool(same.any()) else 0.0
+              for a, b in ((t, tw), (u, uw), (v, vw)))
+    check(err <= 1e-5, f"{what}: t/u/v differ by {err} where prim matches")
+    return err
+
+
+def hold_any(what, got, want):
+    n_diff = int((got != want).sum())
+    print(f"{what}: {got.shape[0]} rays, {int(want.sum())} occluded, {n_diff} mismatches")
+    check(n_diff <= 1e-4 * got.shape[0], f"{what}: more than 1e-4 of rays differ")
+
+
+def compare_trace(session, report):
+    """K1 and K8 (closest on primary rays, any-hit on shadow rays) and K2
+    against their plain versions on the 1080p frame's rays."""
+    import torch
+
+    from capsaicin_tpu_torch.ops import brute, lookup, static
     from capsaicin_tpu_torch.ops import camera as cam
-    from capsaicin_tpu_torch.ops import lookup, static
     from capsaicin_tpu_torch.render import shading
 
     n = W * H
@@ -154,19 +270,8 @@ def compare_trace(session, report):
 
     t, u, v, prim = static.static_trace(acc, o, d, 0.0, tmax, False)
     tp, up, vp, pp = static.static_trace_plain(acc.tris, o, d, 0.0, tmax, False)
-    # an edge ray is one that either version hits within 1e-5 of an edge
-    edge = torch.zeros_like(prim, dtype=torch.bool)
-    for pr, uu, vv in ((prim, u, v), (pp, up, vp)):
-        edge |= (pr >= 0) & ((uu < 1e-5) | (vv < 1e-5) | (1.0 - uu - vv < 1e-5))
-    diff = prim != pp
-    n_diff = int(diff.sum())
-    print(f"K1 closest: {n} primary rays, {n_diff} prim mismatches "
-          f"({int((diff & ~edge).sum())} off the edges)")
-    check(not bool((diff & ~edge).any()), "K1: prim differs on a ray that is not an edge ray")
-    check(n_diff <= 1e-4 * n, "K1: more than 1e-4 of rays differ in prim")
-    same = ~diff
-    err = max(float((a - b)[same].abs().max()) for a, b in ((t, tp), (u, up), (v, vp)))
-    check(err <= 1e-5, f"K1: t/u/v differ by {err} where prim matches")
+    err = hold_hits("K1 closest vs its plain version, Cornell primary", (t, u, v, prim),
+                    (tp, up, vp, pp))
 
     # shadow rays of the direct pass: hit points toward the light, dead
     # (tmax = -1) where the primary ray missed or the surface faces away
@@ -184,11 +289,10 @@ def compare_trace(session, report):
     live = (pp >= 0) & (unshadowed > 0.0).any(-1)
     stmax = torch.where(live, shading.LIGHT_DISTANCE, -1.0)
     sp = hitp["p"].contiguous()
-    sh = static.static_trace(acc, sp, ldir, shading.SHADOW_TMIN, stmax, True)
-    shp = static.static_trace_plain(acc.tris, sp, ldir, shading.SHADOW_TMIN, stmax, True)[3] >= 0
-    n_sdiff = int((sh != shp).sum())
-    print(f"K1 any-hit: {n} shadow rays ({int((~live).sum())} dead), {n_sdiff} mismatches")
-    check(n_sdiff <= 1e-4 * n, "K1: more than 1e-4 of shadow rays differ")
+    hold_any(f"K1 any-hit vs its plain version, Cornell shadow ({int((~live).sum())} dead)",
+             static.static_trace(acc, sp, ldir, shading.SHADOW_TMIN, stmax, True),
+             static.static_trace_plain(acc.tris, sp, ldir, shading.SHADOW_TMIN, stmax, True)[3]
+             >= 0)
 
     k1_ms = cuda_ms(lambda: static.static_trace(acc, o, d, 0.0, tmax, False), 20)
     k1_plain = cuda_ms(lambda: static.static_trace_plain(acc.tris, o, d, 0.0, tmax, False), 5)
@@ -200,8 +304,30 @@ def compare_trace(session, report):
     k2_ms = cuda_ms(lambda: lookup.hit_attributes(table, prim, u, v), 20)
     k2_plain = cuda_ms(lambda: lookup.hit_attributes_plain(table, prim, u, v), 20)
     print(f"K2 {k2_ms:.4f} ms (plain {k2_plain:.4f} ms)")
-    report["static_trace"] = dict(max_abs_err=err, ms=k1_ms, plain_ms=k1_plain)
-    report["hit_attributes"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain)
+    n_tris = acc.n_tris
+    # per ray: origin, direction, tmax in (28 B); t, u, v, prim out (16 B)
+    report["static_trace"] = dict(max_abs_err=err, ms=k1_ms, plain_ms=k1_plain,
+                                  **bound(n * n_tris * OPS_TRI, n * 44 + n_tris * 36))
+    # per ray: prim, u, v in (12 B); P, N, UV, kd, texture and mesh id out (52 B)
+    report["hit_attributes"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
+                                    **bound(n * OPS_ATTR, n * 64 + table.numel() * 4))
+
+    # K8 on the same rays and triangles (the brute-force packing is K1's)
+    scene8 = acc
+    k8 = brute.brute_trace(scene8, o, d, 0.0, tmax, False)
+    k8p = brute.brute_trace_plain(scene8.tris, o, d, 0.0, tmax, False)
+    k8_err = hold_hits("K8 closest vs its plain version, Cornell primary", k8, k8p)
+    hold_hits("K8 closest vs K1, Cornell primary", k8, (t, u, v, prim), hits_only=True)
+    hold_any("K8 any-hit vs its plain version, Cornell shadow",
+             brute.brute_trace(scene8, sp, ldir, shading.SHADOW_TMIN, stmax, True),
+             brute.brute_trace_plain(scene8.tris, sp, ldir, shading.SHADOW_TMIN, stmax, True))
+    k8_ms = cuda_ms(lambda: brute.brute_trace(scene8, o, d, 0.0, tmax, False), 20)
+    k8_plain = cuda_ms(lambda: brute.brute_trace_plain(scene8.tris, o, d, 0.0, tmax, False), 3)
+    k8_any = cuda_ms(lambda: brute.brute_trace(scene8, sp, ldir, shading.SHADOW_TMIN, stmax,
+                                               True), 20)
+    print(f"K8 closest {k8_ms:.4f} ms (plain {k8_plain:.4f} ms); any-hit {k8_any:.4f} ms")
+    report["brute_trace"] = dict(max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_plain, any_ms=k8_any,
+                                 **bound(n * n_tris * OPS_TRI, n * 44 + n_tris * 36))
 
 
 def frame_aux(session, options, frames=3):
@@ -276,7 +402,13 @@ def compare_stencils(session, report):
         "eaw_pair": (stencil.eaw_pair, stencil.eaw_pair_plain,
                      [(color4, geo, *p, True, *sig) for p in pairs]),
     }
+    # taps per pixel, and bytes per pixel read and written in float32
+    work = {"eaw_disocclusion": (49, 16 + 16 + 12 + 16), "eaw_stage": (25, 16 + 16 + 16),
+            "spatial_gather": (49, 12 + 16 + 12), "eaw_pair": (50, 16 + 16 + 16)}
     for name, (kernel, plain, arg_sets) in cases.items():
+        taps, bpp = work[name]
+        bounds = [bound(px * taps * OPS_TAP, px * bpp)
+                  for px in (a[0].shape[0] * a[0].shape[1] for a in arg_sets)]
         bf_sets = [tuple(a.bfloat16() if torch.is_tensor(a) else a for a in args)
                    for args in arg_sets]
         err = max(close(kernel(*a), plain(*a), f"{name} case {n}")
@@ -290,7 +422,9 @@ def compare_stencils(session, report):
         entry = dict(max_abs_err=err, ms=sum(ms) / len(ms), plain_ms=sum(plain_ms) / len(ms),
                      bf16_max_abs_err=max(e for e, _ in bf_err),
                      bf16_mean_abs_err=max(e for _, e in bf_err),
-                     bf16_ms=sum(bf_ms) / len(ms), bf16_plain_ms=sum(bf_plain) / len(ms))
+                     bf16_ms=sum(bf_ms) / len(ms), bf16_plain_ms=sum(bf_plain) / len(ms),
+                     bound_ms=sum(b["bound_ms"] for b in bounds) / len(ms),
+                     bound_by=bounds[0]["bound_by"], library_ms=None)
         if len(ms) > 1:  # per case: strides, pairs, or the gather's full and half resolution
             entry.update(case_ms=ms, case_plain_ms=plain_ms, case_bf16_ms=bf_ms)
         report[name] = entry
@@ -330,6 +464,183 @@ def compare_stencils(session, report):
               f"{cuda_ms(lambda: chain(o16), 10):.4f} ms")
 
 
+def frame_rays(session, frames=3):
+    """The rays of the last of `frames` frames of a session's scene from a
+    reset: [(kind, origins, dirs, tmin, tmax [N])] for the primary,
+    direct-shadow, bounce and NEE traces, in that order."""
+    import torch
+
+    from capsaicin_tpu_torch.render import pipeline
+
+    closest, any_hit = session._trace
+    calls = []
+
+    def record(kind, fn):
+        def traced(o, d, tmin, tmax):
+            tm = torch.as_tensor(tmax, dtype=torch.float32, device=o.device).expand(o.shape[0])
+            calls.append((kind, o.contiguous(), d.contiguous(), float(tmin), tm.contiguous()))
+            return fn(o, d, tmin, tmax)
+        return traced
+
+    state = pipeline.init_state(session.width, session.height, session.camera, session.options)
+    for _ in range(frames):
+        calls.clear()
+        _, state = pipeline.render_frame(
+            session.shade, record("closest", closest), record("any", any_hit), session.camera,
+            state, session.settings, session.noise, session.width, session.height,
+            session.options)
+    torch.cuda.synchronize()
+    return list(calls)
+
+
+def compare_bvh(report):
+    """K7 on the full colonnade's 1080p rays (primary, direct shadow,
+    bounce and NEE of the third frame): against its plain version and K8
+    on a subsample, against K7 over trees of other leaf sizes and through
+    the ray sort on all rays; its times at leaf 4, 8 and 32; and K2 on the
+    colonnade's 249,190-row table."""
+    import torch
+
+    from capsaicin_tpu_torch.ops import brute, bvh, lookup, static, traverse
+    from capsaicin_tpu_torch.render.traversal import with_ray_sorting, with_ray_sorting_any
+
+    session = make_session(W, H, "cuda", scene="colonnade", traversal="bvh")
+    acc = session.accel
+    check(acc.leaf_size == bvh.LEAF_SIZE, f"leaf size {acc.leaf_size}")
+    tris = torch.stack([session.scene_dev.tri_v0, session.scene_dev.tri_v1,
+                        session.scene_dev.tri_v2], 1)
+    trees = {bvh.LEAF_SIZE: acc}
+    for leaf in (4, 8, 32):
+        if leaf not in trees:
+            trees[leaf] = bvh.build_bvh(tris, leaf)
+    for leaf, tree in sorted(trees.items()):
+        print(f"colonnade BVH leaf {leaf}: {tree.n_leaves} leaves, depth {tree.depth}, "
+              f"nodes {tree.nodes.numel() * 4 / 2**20:.2f} MiB, "
+              f"triangles {tree.tris.numel() * 4 / 2**20:.2f} MiB")
+    scene8 = static.pack_triangles(tris)
+    names = ("primary", "shadow", "bounce", "nee")
+    calls = frame_rays(session)
+    check([c[0] for c in calls] == ["closest", "any", "closest", "any"],
+          f"colonnade frame traces {[c[0] for c in calls]}")
+    errs, per_set = [], {}
+    for name, (kind, o, d, tmin, tmax) in zip(names, calls):
+        any_hit = kind == "any"
+        n = o.shape[0]
+        live = int((tmax >= tmin).sum())
+        full = bvh.bvh_trace(acc, o, d, tmin, tmax, any_hit)
+        idx = torch.arange(0, n, n // SUBSAMPLE, device=o.device)[:SUBSAMPLE]
+        so, sd, stm = o[idx], d[idx], tmax[idx]
+        sub = bvh.bvh_trace(acc, so, sd, tmin, stm, any_hit)
+        plain, plain_ms = timed(lambda: traverse.traverse(acc.host, so, sd, tmin, stm, any_hit,
+                                                          counts=True))
+        k8 = brute.brute_trace(scene8, so, sd, tmin, stm, any_hit)
+        what = f"K7 {kind} ({name})"
+        if any_hit:
+            check(torch.equal(sub, full[idx]), f"{what}: the subsample's hits differ from the full run's")
+            hold_any(f"{what} vs its plain version", sub, plain["prim"] >= 0)
+            hold_any(f"{what} vs K8", sub, k8)
+        else:
+            check(all(torch.equal(a, b[idx]) for a, b in zip(sub, full)),
+                  f"{what}: the subsample's hits differ from the full run's")
+            plain4 = tuple(plain[k] for k in ("t", "u", "v", "prim"))
+            errs.append(hold_hits(f"{what} vs its plain version", sub, plain4))
+            hold_hits(f"{what} vs K8", sub, k8, hits_only=True)
+        for leaf, tree in trees.items():
+            if leaf != acc.leaf_size:
+                other = bvh.bvh_trace(tree, o, d, tmin, tmax, any_hit)
+                (hold_any if any_hit else hold_hits)(f"{what} leaf {acc.leaf_size} vs leaf {leaf}",
+                                                    full, other)
+        times = {leaf: cuda_ms(lambda tree=tree: bvh.bvh_trace(tree, o, d, tmin, tmax, any_hit), 5)
+                 for leaf, tree in sorted(trees.items())}
+        boxes = float(plain["boxes"].double().mean())
+        tests = float(plain["tris"].double().mean())
+        # the work of the plain walk on the subsample, scaled to all rays;
+        # bytes: rays in (28 B), results out (16 B, any-hit 1 B), the tree once
+        ops = (boxes * OPS_BOX + tests * OPS_TRI) * n
+        nbytes = n * (28 + (1 if any_hit else 16)) + (acc.nodes.numel() + acc.tris.numel()) * 4
+        entry = dict(rays=n, live=live, box_tests_per_ray=boxes, tri_tests_per_ray=tests,
+                     ms_by_leaf=times, plain_ms=plain_ms, plain_rays=len(idx), **bound(ops, nbytes))
+        if name in ("bounce", "nee"):  # the session traces these sorted
+            closest, any_fn = session._trace
+            fn = with_ray_sorting_any(any_fn) if any_hit else with_ray_sorting(closest)
+            got = fn(o, d, tmin, tmax)
+            got = got if any_hit else tuple(got[k] for k in ("t", "u", "v", "prim"))
+            check(torch.equal(got, full) if any_hit else all(map(torch.equal, got, full)),
+                  f"{what}: sorted rays give other hits")
+            order, _ = bvh.sort_rays_for_traversal(o, d, dead=tmax < tmin)
+            oo, od, otm = o[order].contiguous(), d[order].contiguous(), tmax[order].contiguous()
+            entry["sorted_ms"] = cuda_ms(lambda: bvh.bvh_trace(acc, oo, od, tmin, otm, any_hit), 5)
+            entry["sort_and_trace_ms"] = cuda_ms(lambda: fn(o, d, tmin, tmax), 5)
+        per_set[name] = entry
+        print(f"{what}: {n} rays ({live} live); K7 ms by leaf size {times}; plain "
+              f"{plain_ms:.1f} ms on {len(idx)} rays; {boxes:.1f} box and {tests:.1f} triangle "
+              f"tests per ray (plain walk); bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']})" + (f"; sorted rays {entry['sorted_ms']:.4f} ms, sort and "
+                                          f"trace {entry['sort_and_trace_ms']:.4f} ms"
+                                          if "sorted_ms" in entry else ""))
+    mean = lambda key: sum(e[key] for e in per_set.values()) / len(per_set)  # noqa: E731
+    report["bvh_trace"] = dict(
+        max_abs_err=max(errs), ms=sum(e["ms_by_leaf"][acc.leaf_size] for e in per_set.values())
+        / len(per_set), plain_ms=mean("plain_ms"), plain_rays=SUBSAMPLE,
+        bound_ms=mean("bound_ms"), bound_by=per_set["primary"]["bound_by"], library_ms=None,
+        leaf_size=acc.leaf_size, per_set=per_set)
+
+    # K2 on the colonnade's primary hits: the table is read from device memory
+    table = session.shade.table
+    t, u, v, prim = bvh.bvh_trace(acc, *calls[0][1:3], calls[0][3], calls[0][4], False)
+    got = lookup.hit_attributes(table, prim, u, v)
+    want = lookup.hit_attributes_plain(table, prim, u, v)
+    err = 0.0
+    for key in want:
+        torch.testing.assert_close(got[key].double(), want[key].double(), rtol=1e-6, atol=1e-6)
+        err = max(err, float((got[key].double() - want[key].double()).abs().max()))
+    k2_ms = cuda_ms(lambda: lookup.hit_attributes(table, prim, u, v), 20)
+    k2_plain = cuda_ms(lambda: lookup.hit_attributes_plain(table, prim, u, v), 20)
+    n = prim.shape[0]
+    large = bound(n * OPS_ATTR, n * 64 + table.numel() * 4)
+    print(f"K2 on the colonnade's {table.shape[0]}-row table: max abs err {err:.3g}; "
+          f"{k2_ms:.4f} ms (plain {k2_plain:.4f} ms), bound {large['bound_ms']:.4f} ms")
+    report["hit_attributes"].update(large_table_rows=table.shape[0], large_table_max_abs_err=err,
+                                    large_table_ms=k2_ms, large_table_plain_ms=k2_plain,
+                                    large_table_bound_ms=large["bound_ms"])
+    del session
+
+
+def compare_microstep(report):
+    """K9's five variants: exactly its plain walk at 40 steps, then timed
+    at 64 packets x 4096 steps (the counts are its path's launches)."""
+    import torch
+
+    from capsaicin_tpu_torch import kernels as K
+    from capsaicin_tpu_torch.tools import microstep as msk
+
+    packets, steps = 64, msk.STEPS
+    rays, nodes = msk.make_inputs(packets, device="cuda")
+    for variant in msk.VARIANTS:
+        check(torch.equal(msk.microstep(variant, rays, nodes, 40),
+                          msk.microstep_plain(variant, rays, nodes, 40)),
+              f"K9 {variant}: out differs from the plain walk")
+    K.reset_counts()
+    variants = {}
+    for variant in msk.VARIANTS:
+        ms = cuda_ms(lambda v=variant: msk.microstep(v, rays, nodes, steps), 5)
+        variants[variant] = dict(ms=ms, **msk.step_times(ms, packets, steps))
+    launches = msk.K9.launches
+    for variant in msk.VARIANTS:
+        variants[variant]["plain_ms"] = timed(
+            lambda v=variant: msk.microstep_plain(v, rays, nodes, steps))[1]
+        print(f"K9 {variant}: {variants[variant]['ms']:.4f} ms for {packets} packets x {steps} "
+              f"steps = {variants[variant]['ns_per_step']:.3f} ns/step "
+              f"({variants[variant]['ns_per_walk_step']:.2f} ns per step of one packet's walk); "
+              f"plain {variants[variant]['plain_ms']:.1f} ms")
+    full = variants["full"]
+    report["microstep"] = dict(
+        max_abs_err=0.0, ms=full["ms"], plain_ms=full["plain_ms"], variants=variants,
+        **bound(packets * msk.PACKET * steps * OPS_MICROSTEP,
+                rays.numel() * 4 + nodes.numel() * 4 + packets * msk.PACKET * 4))
+    return launches
+
+
 def run_config(name, cfg, frames, per_frame):
     """One Cornell configuration through the session API: a warm-up frame,
     then `frames` frames (render_loop with accumulate for a loop config)
@@ -341,6 +652,7 @@ def run_config(name, cfg, frames, per_frame):
     cfg = dict(cfg)
     loop = cfg.pop("loop", None)
     width, height = cfg["width"], cfg["height"]
+    torch.cuda.reset_peak_memory_stats()
     session = make_session(**cfg, device="cuda")
     session.render_async()
     torch.cuda.synchronize()
@@ -355,11 +667,13 @@ def run_config(name, cfg, frames, per_frame):
     ms = (time.perf_counter() - t0) * 1e3 / frames
     launches = {k.name: k.launches for k in K.REGISTRY}
     check_launches(launches, per_frame, frames, name)
-    check_image(display.cpu().numpy(), (height, width, 3), name)
+    check_image(display.cpu().numpy(), (height, width, 3), name,
+                sky_corner=not cfg.get("scene", "").startswith("colonnade"))
     o = session.options
     rays = rays_per_frame(width, height, o.num_diffuse_bounces, o.lowres_indirect, o.spp)
     print(f"{name} {width}x{height}: {ms:.2f} ms/frame over {frames} frames = "
-          f"{rays / ms / 1e3:.2f} Mrays/s ({rays} rays/frame); launches {launches}")
+          f"{rays / ms / 1e3:.2f} Mrays/s ({rays} rays/frame); set-up {session.setup_s:.3f} s; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches {launches}")
     return launches
 
 
@@ -372,9 +686,11 @@ def main() -> int:
     import numpy as np
 
     from capsaicin_tpu_torch import kernels as K
-    # importing registers the kernels: K1, K2, then K3-K6
+    # importing registers the kernels: K1, K2, K3-K6, K7, K8, K9
     from capsaicin_tpu_torch.ops import static  # noqa: F401
     from capsaicin_tpu_torch.ops import lookup, stencil  # noqa: F401
+    from capsaicin_tpu_torch.ops import bvh, brute  # noqa: F401
+    from capsaicin_tpu_torch.tools import microstep  # noqa: F401
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -395,6 +711,8 @@ def main() -> int:
     report = {}
     compare_trace(session, report)
     compare_stencils(session, report)
+    compare_bvh(report)
+    microstep_launches = compare_microstep(report)
 
     # 4. the flagship, gi1080 with default options, through the session
     # API, counting launches; then PR 1's gather=False path, shortly
@@ -422,7 +740,8 @@ def main() -> int:
     run_config("gi1080_no_gather", dict(width=W, height=H, options=dict(gather=False)), 3,
                dict(FLAGSHIP_LAUNCHES, spatial_gather=0))
 
-    # 4b. the other Cornell configurations of bench.py through the session API
+    # 4b. the other configurations of bench.py through the session API
+    path_launches["microstep"] = microstep_launches
     for name, cfg, frames, per_frame in CONFIGS:
         launches = run_config(name, cfg, frames, per_frame)
         for kernel, path in PATH_OF.items():
@@ -435,7 +754,9 @@ def main() -> int:
     for what, cfg in (("default", dict()),
                       ("lowres_indirect spp=2, textured",
                        dict(options=dict(lowres_indirect=True, spp=2), scene="textured")),
-                      ('eaw_fused="1" eaw_bf16', dict(options=dict(eaw_fused="1", eaw_bf16=True)))):
+                      ('eaw_fused="1" eaw_bf16', dict(options=dict(eaw_fused="1", eaw_bf16=True))),
+                      ("colonnade(target_tris=20000), bvh",
+                       dict(scene="colonnade20k", traversal="bvh"))):
         images = {}
         for device in ("cuda", "cpu"):
             small = make_session(SMALL, SMALL, device, **cfg)
@@ -452,7 +773,11 @@ def main() -> int:
              **report[k.name])
         for k in K.REGISTRY
     ]
-    check(len(kernels) == 6, f"{len(kernels)} kernels registered, expected 6")
+    check(len(kernels) == 9, f"{len(kernels)} kernels registered, expected 9")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    for k in kernels:
+        check(all(key in k for key in keys), f"{k['name']}: missing {set(keys) - set(k)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

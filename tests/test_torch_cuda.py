@@ -2,7 +2,10 @@
 float32 (rtol 1e-3, atol 1e-4) and in bf16 storage (max abs err <= 2e-2
 and mean abs err <= 1e-3: a float32 sum taken in another order can flip a
 bf16 rounding by an ulp), the launches of a default-options frame, and
-frames free of host syncs.
+frames free of host syncs. The intersectors (K7 BVH walk, K8 brute force)
+are held to hit ids equal except at equal t (rtol 1e-4) or on triangle
+edges, t/u/v within 1e-5 where the ids agree; the walk benchmark (K9)
+exactly.
 
 Marked `cuda`: each test skips, with the reason, where CUDA is unavailable
 (the decision is taken inside the fixture, never at import). On a machine
@@ -18,12 +21,13 @@ import pytest
 import torch
 
 from capsaicin_tpu_torch import kernels
+from capsaicin_tpu_torch.ops import brute, bvh, lookup, static, stencil, traverse
 from capsaicin_tpu_torch.ops import camera as cam
-from capsaicin_tpu_torch.ops import lookup, static, stencil
 from capsaicin_tpu_torch.render.session import RenderSession
 from capsaicin_tpu_torch.render.settings import RenderOptions, default_settings
 from capsaicin_tpu_torch.scene import build_scene
-from capsaicin_tpu_torch.scene.procedural import cornell_box, make_camera
+from capsaicin_tpu_torch.scene.procedural import colonnade, cornell_box, make_camera
+from capsaicin_tpu_torch.tools import microstep
 
 pytestmark = pytest.mark.cuda
 
@@ -36,10 +40,12 @@ def dev():
     return torch.device("cuda")
 
 
-def _session(w, h, device, **kw):
-    s = RenderSession(w, h, options=RenderOptions(**kw), device=device)
-    s.set_camera(make_camera("cornell", w, h))
-    s.set_scene(build_scene(cornell_box()))
+def _session(w, h, device, scene="cornell", traversal="auto", **kw):
+    """A session on the Cornell box, or with scene="colonnade" on the
+    reduced colonnade (4,966 triangles, so "auto" takes the BVH)."""
+    s = RenderSession(w, h, options=RenderOptions(**kw), device=device, traversal=traversal)
+    s.set_camera(make_camera(scene, w, h))
+    s.set_scene(build_scene(colonnade(target_tris=2000) if scene == "colonnade" else cornell_box()))
     return s
 
 
@@ -148,7 +154,10 @@ def test_eaw_pair_and_bf16_kernels(dev, strides):
     (dict(eaw_fused="13", eaw_bf16=True), dict(eaw_stage=2, eaw_pair=1, spatial_gather=1)),
     (dict(lowres_indirect=True, spp=2), dict(static_trace=6, hit_attributes=5,
                                               spatial_gather=1)),
-], ids=["default", "fused1", "fused13_bf16", "lowres_spp2"])
+    (dict(scene="colonnade"), dict(bvh_trace=4, hit_attributes=3, static_trace=0,
+                                   brute_trace=0)),
+    (dict(traversal="brute"), dict(brute_trace=4, static_trace=0, bvh_trace=0)),
+], ids=["default", "fused1", "fused13_bf16", "lowres_spp2", "colonnade", "brute"])
 def test_frame_launch_counts(dev, kw, per_frame):
     s = _session(64, 48, dev, **kw)
     kernels.reset_counts()
@@ -160,8 +169,9 @@ def test_frame_launch_counts(dev, kw, per_frame):
         assert launches[name] == 2 * n, (name, launches)
 
 
-@pytest.mark.parametrize("kw", [dict(gather=False), dict(), dict(lowres_indirect=True, spp=2)],
-                         ids=["no_gather", "default", "lowres_spp2"])
+@pytest.mark.parametrize("kw", [dict(gather=False), dict(), dict(lowres_indirect=True, spp=2),
+                                dict(scene="colonnade")],
+                         ids=["no_gather", "default", "lowres_spp2", "colonnade"])
 def test_render_async_never_waits_for_the_device(dev, kw):
     """After the first frame has uploaded the per-device constants, a frame
     makes no call that synchronises with the device."""
@@ -196,3 +206,88 @@ def test_cuda_frames_match_cpu_frames(dev):
         for _ in range(3):
             images[str(device)] = s.render()
     assert np.sqrt(np.mean((images["cuda"] - images["cpu"]) ** 2)) <= 1e-3
+
+
+def _hall_rays(dev, n, seed):
+    """Rays from inside the colonnade's hall in random directions; every
+    7th dead (tmax = -1)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([-17.0, 0.5, -9.0], [17.0, 7.0, 9.0], (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.full(n, 1e6, np.float32)
+    tmax[::7] = -1.0
+    return [torch.from_numpy(x).to(dev) for x in (o, d, tmax)]
+
+
+def _hits_agree(got, want, bar=1e-3):
+    """got/want (t, u, v, prim): ids equal except at equal t or edges."""
+    t, u, v, prim = got
+    tw, uw, vw, pw = want
+    diff = prim != pw
+    edge = torch.zeros_like(diff)
+    for p_, u_, v_ in ((prim, u, v), (pw, uw, vw)):
+        edge |= (p_ >= 0) & ((u_ < 1e-5) | (v_ < 1e-5) | (1.0 - u_ - v_ < 1e-5))
+    tie = (prim >= 0) & (pw >= 0) & ((t - tw).abs() <= 1e-4 * t.abs())
+    assert not bool((diff & ~edge & ~tie).any())
+    assert float(diff.float().mean()) <= bar
+    same = ~diff
+    for a, b in ((t, tw), (u, uw), (v, vw)):
+        torch.testing.assert_close(a[same], b[same], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("leaf_size", [4, 8, 32])
+def test_bvh_and_brute_kernels(dev, leaf_size):
+    """K7 against its plain version (the stackless walk) and K8, and K8
+    against its plain version (the chunked oracle), on a 49,774-triangle
+    colonnade."""
+    host = build_scene(colonnade(target_tris=50_000))
+    tris = torch.from_numpy(np.stack([host.tri_v0, host.tri_v1, host.tri_v2], 1))
+    accel = bvh.build_bvh(tris, leaf_size, device=dev)
+    scene = static.pack_triangles(tris.to(dev))
+    o, d, tmax = _hall_rays(dev, 4096, leaf_size)
+    before = bvh.K7.launches
+    k7 = bvh.bvh_trace(accel, o, d, 0.0, tmax, False)
+    assert bvh.K7.launches == before + 1
+    plain = traverse.bvh_closest(accel.host, o, d, 0.0, tmax)
+    _hits_agree(k7, tuple(plain[k] for k in ("t", "u", "v", "prim")))
+    k8 = brute.brute_trace(scene, o, d, 0.0, tmax, False)
+    k8_plain = brute.brute_trace_plain(scene.tris, o, d, 0.0, tmax, False)
+    assert torch.equal(k8[3], k8_plain[3])
+    for a, b in zip(k8[:3], k8_plain[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    hit = k8[3] >= 0
+    assert int(hit.sum()) > 1000
+    assert bool((k8[0][~hit] == 1e30).all()) and bool((k7[0][~hit] == tmax[~hit]).all())
+    _hits_agree(k7, tuple(torch.where(hit, x, y) for x, y in zip(k8, (tmax, 0, 0, -1))))
+    any7 = bvh.bvh_trace(accel, o, d, 1e-4, tmax, True)
+    assert torch.equal(any7, traverse.bvh_any(accel.host, o, d, 1e-4, tmax))
+    assert torch.equal(any7, brute.brute_trace(scene, o, d, 1e-4, tmax, True))
+    assert torch.equal(any7, brute.brute_trace_plain(scene.tris, o, d, 1e-4, tmax, True))
+
+
+def test_hit_attributes_large_table(dev):
+    """K2 reads a table above 128 rows from device memory."""
+    rng = np.random.default_rng(5)
+    rows = 20_000
+    table = torch.from_numpy(rng.uniform(-1, 1, (rows, 29)).astype(np.float32)).to(dev)
+    table[:, 27:29] = torch.from_numpy(rng.integers(-1, 8, (rows, 2)).astype(np.float32)).to(dev)
+    n = 50_000
+    prim = torch.from_numpy(rng.integers(-1, rows, n).astype(np.int32)).to(dev)
+    u = torch.from_numpy(rng.random(n, dtype=np.float32) * 0.5).to(dev)
+    v = torch.from_numpy(rng.random(n, dtype=np.float32) * 0.5).to(dev)
+    before = lookup.K2.launches
+    got = lookup.hit_attributes(table, prim, u, v)
+    assert lookup.K2.launches == before + 1
+    want = lookup.hit_attributes_plain(table, prim, u, v)
+    for key in want:
+        torch.testing.assert_close(got[key], want[key], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("variant", microstep.VARIANTS)
+def test_microstep_kernel(dev, variant):
+    rays, nodes = microstep.make_inputs(3, seed=1, device=dev)
+    before = microstep.K9.launches
+    got = microstep.microstep(variant, rays, nodes, 50)
+    assert microstep.K9.launches == before + 1
+    assert torch.equal(got, microstep.microstep_plain(variant, rays, nodes, 50))

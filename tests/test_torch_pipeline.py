@@ -203,11 +203,11 @@ def test_session_raises_on_unported_options(kw):
 
 
 def test_session_raises_on_unported_scenes_and_traversal():
-    """Non-static traversal still raises; a textured scene (from the JAX
+    """The stream traversal still raises; a textured scene (from the JAX
     package's host Scene, with either atlas) renders."""
     from capsaicin_tpu.scene.scene import quantize_atlas as jquantize_atlas
 
-    session = RenderSession(W, H, device="cpu", traversal="brute")
+    session = RenderSession(W, H, device="cpu", traversal="stream")
     with pytest.raises(NotImplementedError):
         session.set_scene(build_scene(cornell_box()))
     textured = jbuild_scene(*jcornell_box_textured())
