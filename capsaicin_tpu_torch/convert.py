@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from .ops.camera import Camera
+from .ops.stream import StreamBVH
 from .render.pipeline import FrameState
 from .render.settings import Settings, make_settings
 from .scene.scene import Scene
@@ -50,6 +51,24 @@ def state_from_numpy(state, device="cpu") -> FrameState:
         prev_camera=camera_from_numpy(state.prev_camera, device),
         frame_count=int(np.asarray(state.frame_count)),
     )
+
+
+def stream_bvh_from_numpy(boxes, tris, n_blocks: int, block_tris: int, device="cpu"):
+    """The JAX package's StreamBVH arrays (numpy) -> the port's StreamBVH:
+    boxes [8, Bp] (rows lo xyz, hi xyz, valid; a block a lane) and tris
+    [B, rows, 128] (8 triangles a row as v0, e1, e2, id + 1) into the
+    card's float4 layout of ops/stream.py."""
+    boxes = np.asarray(boxes, np.float32)
+    rec = np.asarray(tris, np.float32)[:, :, :80].reshape(n_blocks * block_tris, 10)
+    out_boxes = np.zeros((n_blocks, 8), np.float32)
+    out_boxes[:, 0:3] = boxes[0:3, :n_blocks].T
+    out_boxes[:, 3] = boxes[6, :n_blocks]
+    out_boxes[:, 4:7] = boxes[3:6, :n_blocks].T
+    slots = np.zeros((n_blocks * block_tris, 12), np.float32)
+    for f in range(3):  # v0, e1, e2
+        slots[:, 4 * f:4 * f + 3] = rec[:, 3 * f:3 * f + 3]
+    slots.view(np.int32)[:, 3] = rec[:, 9].astype(np.int32) - 1
+    return StreamBVH(_tensor(out_boxes, device), _tensor(slots, device), n_blocks, block_tris)
 
 
 def state_to_numpy(state: FrameState) -> FrameState:

@@ -1,0 +1,358 @@
+"""Stream traversal for dense scenes (kernels K10, `csrc/stream_trace.cu`,
+and K11, `csrc/stream_count.cu`): the torch counterpart of
+capsaicin_tpu/ops/stream.py.
+
+Rays go in sub-packets of LANE = 128: sub-packet i is rays
+[128 i, 128 i + 128), the last one padded with dead rays. Each sub-packet
+takes the interval bounds of its live rays (origin, inverse direction,
+tmin, tmax) and tests them against EVERY leaf-block box at once (the cull:
+an interval slab test, so no stack walk). The blocks it hits are streamed
+nearest first, in (conservative entry distance, block id) order, and each
+popped block's triangles are tested against the sub-packet's 128 rays in
+slot order. Before each pop the sub-packet's cap is taken again (the
+largest reach min(t_best, tmax) of its live rays; for any-hit the largest
+tmax of its live rays that have no hit yet), and the stream stops at the
+first block whose entry lies beyond it. The cap never rises and the
+entries never fall, so no later block could be popped either. K11 is the
+cull alone: the candidate count of each sub-packet, which `balance_order`
+sorts by.
+
+The structure (`StreamBVH`) is the median BVH of ops.lbvh with leaves of
+`block_tris` triangles; leaf b is heap node n_leaves + b, and n_leaves is
+a power of two, so many blocks of a scene are empty:
+- `boxes` [n_blocks, 8] float32, two float4s a block: (lo xyz, valid),
+  (hi xyz, 0). An empty block has the box +3e38 .. -3e38, whose interval
+  products give +-inf; only its valid flag (0) keeps it out of the cull.
+- `tris` [n_blocks * block_tris, 12] float32, K7's triangle slots in block
+  order: (v0 xyz, id), (e1 xyz, 0), (e2 xyz, 0), the id as int32 bits.
+  Padding slots are copies of triangle 0 with id -1, at the end of their
+  block; only the id test rejects them.
+
+Contracts, as the JAX package's: closest hit returns t = 1e30 on a miss
+(as K8, not tmax as K1 and K7) and u = v = 0; any-hit counts a dead ray
+(tmax < tmin) as decided, so a sub-packet retires once its live rays have
+all hit, and reports it as not hit. tmin is a scalar, tmax a scalar or [N].
+
+The plain versions (`stream_count_plain`, `stream_trace_plain`) compute
+the same cull and pop the same blocks in the same order, vectorised over
+sub-packets. The TPU kernel extracts the next block one step ahead of its
+triangle test (its DMA pipeline), so it may pop one block past the cap; a
+block past the cap holds no hit for any ray of the sub-packet, so the
+results agree.
+
+Not carried over, since none changes a result: the gang of 8 sub-packets
+(TPU sublanes), the `hier` and `near_first` extraction variants, the DMA
+semaphores, the 128-lane row packing of boxes and triangles, and the int32
+valid mask of the TPU kernel's loop.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels as K
+from . import lbvh
+from .bvh import pack_tris
+from .traverse import _mt_single, _safe_inv
+
+LANE = 128  # rays per sub-packet
+BLOCK_TRIS = 32  # triangles per block (the BVH leaf), the JAX package's default
+MAX_BLOCK_TRIS = 128  # the kernels stage at most this many triangles a block
+MISS_T = 1e30
+BIG = 1e30  # the bound of a sub-packet without live rays
+# Hopper's opt-in shared memory per block (227 KB), less the kernel's static
+# shared memory; K10 holds a sub-packet's candidate list and two staged blocks
+SHARED_BYTES = 232_448 - 1024
+PAIRS_PER_CHUNK = 1 << 24  # sub-packets x blocks per cull of the plain versions
+
+_RAYS = [K.vp, K.vp, K.f32, K.vp, K.vp]  # origins, dirs, tmin, tmax, boxes
+K10 = K.register(K.Kernel(
+    "stream_trace", "stream_trace",
+    _RAYS + [K.vp, K.vp, K.i32, K.i32, K.i32, K.i32, K.vp, K.vp, K.vp, K.vp, K.vp],
+    source="capsaicin_tpu_torch/csrc/stream_trace.cu",
+    replaces="capsaicin_tpu/ops/stream.py:220",
+))
+K11 = K.register(K.Kernel(
+    "stream_count", "stream_count",
+    _RAYS + [K.i32, K.i32, K.vp],
+    source="capsaicin_tpu_torch/csrc/stream_count.cu",
+    replaces="capsaicin_tpu/ops/stream.py:209",
+))
+
+
+class StreamBVH:
+    """The blocks' boxes and triangle slots on a device (see the module doc)."""
+
+    def __init__(self, boxes: torch.Tensor, tris: torch.Tensor, n_blocks: int, block_tris: int):
+        self.boxes = boxes
+        self.tris = tris
+        self.n_blocks = n_blocks
+        self.block_tris = block_tris
+
+
+def build_stream_bvh(tris, block_tris: int = BLOCK_TRIS, device=None) -> StreamBVH:
+    """tris [T,3,3] (numpy, or a tensor whose device is the default) -> the
+    median build with leaves of `block_tris`, packed on `device`."""
+    if device is None:
+        device = tris.device if isinstance(tris, torch.Tensor) else "cpu"
+    host = lbvh.build_median_bvh(tris, leaf_size=block_tris)
+    b = host.n_leaves
+    lo, hi = host.nodes_min[b:], host.nodes_max[b:]  # leaves: heap nodes [b, 2b)
+    boxes = np.zeros((b, 8), np.float32)
+    boxes[:, 0:3] = lo
+    boxes[:, 3] = lo[:, 0] <= hi[:, 0]
+    boxes[:, 4:7] = hi
+    return StreamBVH(torch.from_numpy(boxes).to(device),
+                     torch.from_numpy(pack_tris(host)).to(device), b, block_tris)
+
+
+def _sub_packets(origins, dirs, tmin: float, tmax):
+    """Rays [N,3] -> sub-packets: origins and directions [P,128,3], tmax
+    [P,128] (the padding dead: tmax -inf), tmin a float32 scalar tensor."""
+    pad = -origins.shape[0] % LANE
+    pad_rows = torch.nn.functional.pad
+    return (pad_rows(origins, (0, 0, 0, pad)).reshape(-1, LANE, 3),
+            pad_rows(dirs, (0, 0, 0, pad)).reshape(-1, LANE, 3),
+            torch.tensor(tmin, dtype=torch.float32, device=origins.device),
+            pad_rows(tmax, (0, pad), value=float("-inf")).reshape(-1, LANE))
+
+
+def _bounds(o, d, tmin, tmax):
+    """Each sub-packet's interval bounds over its live rays, as the JAX
+    package's _sub_packet_bounds: (o_lo, o_hi, i_lo, i_hi) [P,3] and
+    (tmin_lo, tcap0, any_live) [P]."""
+    live = tmax >= tmin
+    lv = live[..., None]
+    inv = _safe_inv(d)
+    o_lo = torch.where(lv, o, BIG).amin(1)
+    o_hi = torch.where(lv, o, -BIG).amax(1)
+    i_lo = torch.where(lv, inv, BIG).amin(1)
+    i_hi = torch.where(lv, inv, -BIG).amax(1)
+    any_live = live.any(1)
+    tmin_lo = torch.where(any_live, tmin, BIG)
+    tcap0 = torch.where(live, tmax, -BIG).amax(1)
+    return o_lo, o_hi, i_lo, i_hi, tmin_lo, tcap0, any_live
+
+
+def _interval_products(al, ah, il, ih):
+    p1, p2, p3, p4 = al * il, al * ih, ah * il, ah * ih
+    return (torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4)),
+            torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4)))
+
+
+def _cull(bounds, boxes):
+    """Interval slab test of every block box [B,8] against each
+    sub-packet's bounds -> (tn conservative entry, hit), both [P,B]."""
+    o_lo, o_hi, i_lo, i_hi, tmin_lo, tcap0, any_live = bounds
+    tn = tf = None
+    for ax in range(3):
+        blo, bhi = boxes[:, ax], boxes[:, 4 + ax]
+        olo, ohi = o_lo[:, ax, None], o_hi[:, ax, None]
+        il, ih = i_lo[:, ax, None], i_hi[:, ax, None]
+        l0, h0 = _interval_products(blo - ohi, blo - olo, il, ih)
+        l1, h1 = _interval_products(bhi - ohi, bhi - olo, il, ih)
+        alo, ahi = torch.minimum(l0, l1), torch.maximum(h0, h1)
+        tn = alo if tn is None else torch.maximum(tn, alo)
+        tf = ahi if tf is None else torch.minimum(tf, ahi)
+    hit = ((tn <= tf) & (tf >= tmin_lo[:, None]) & (tn <= tcap0[:, None])
+           & (boxes[:, 3] > 0) & any_live[:, None])
+    return tn, hit
+
+
+def _chunks(p: int, n_blocks: int):
+    step = max(1, PAIRS_PER_CHUNK // n_blocks)
+    return [slice(s, min(p, s + step)) for s in range(0, p, step)]
+
+
+def stream_count_plain(sbvh: StreamBVH, origins, dirs, tmin: float, tmax) -> torch.Tensor:
+    """The plain version of K11: the candidate blocks of each sub-packet,
+    int32 [ceil(N/128)]."""
+    o, d, tmin, tm = _sub_packets(origins, dirs, tmin, tmax)
+    counts = torch.zeros(o.shape[0], dtype=torch.int32, device=o.device)
+    for c in _chunks(o.shape[0], sbvh.n_blocks):
+        counts[c] = _cull(_bounds(o[c], d[c], tmin, tm[c]), sbvh.boxes)[1].sum(1, dtype=torch.int32)
+    return counts
+
+
+def _stream_chunk(sbvh: StreamBVH, o, d, tmin, tm, any_hit: bool, state, work):
+    """Cull and stream the sub-packets of one chunk, updating `state`
+    (t_best, u, v, prim, each [C,128]) and `work` (blocks streamed,
+    triangle tests, each [C]) in place; returns the candidate count [C]."""
+    t_best, bu, bv, prim = state
+    streamed, tests = work
+    live = tm >= tmin
+    tn, hit = _cull(_bounds(o, d, tmin, tm), sbvh.boxes)
+    # (tn, block id) order: the ids ascend along a row, and the sort is
+    # stable; -0.0 becomes +0.0 so every sort takes it as equal to 0
+    key = torch.where(hit, tn, float("inf")) + 0.0
+    key, order = torch.sort(key, dim=1, stable=True)
+    count = hit.sum(1)
+    tri_id = sbvh.tris.view(torch.int32)[:, 3]
+    slot = torch.arange(sbvh.block_tris, device=o.device)
+    act = torch.arange(o.shape[0], device=o.device)
+    for k in range(int(count.max()) if count.numel() else 0):
+        if any_hit:
+            cap = torch.where(live[act] & (prim[act] < 0), tm[act], -BIG).amax(1)
+        else:
+            cap = torch.where(live[act], torch.minimum(t_best[act], tm[act]), -BIG).amax(1)
+        act = act[(k < count[act]) & (key[act, k] <= cap)]
+        if not act.numel():
+            break
+        slots = order[act, k, None] * sbvh.block_tris + slot  # [A, block_tris]
+        tri = sbvh.tris[slots][:, None]  # [A, 1, block_tris, 12]
+        tid = tri_id[slots][:, None]
+        # the tests the function needs: the block's triangles (not its
+        # padding) against the live rays, for any-hit those without a hit
+        lanes = prim[act] < 0 if any_hit else live[act]
+        tests[act] += lanes.sum(1) * (tid[:, 0] >= 0).sum(1)
+        best = t_best[act]
+        tt, uu, vv, ok = _mt_single(o[act, :, None], d[act, :, None], tri[..., 0:3],
+                                    tri[..., 4:7], tri[..., 8:11], tmin, best[..., None])
+        ok &= tid >= 0
+        if any_hit:
+            ok &= (prim[act] < 0)[..., None]
+            j = ok.to(torch.uint8).argmax(2, keepdim=True)  # the first hit in slot order
+            found = ok.any(2)
+        else:
+            tt = torch.where(ok, tt, float("inf"))
+            j = tt.argmin(2, keepdim=True)  # the first of the nearest, as slot order keeps
+            found = tt.gather(2, j)[..., 0] < best
+        pick = lambda x: x.gather(2, j)[..., 0]  # noqa: E731
+        t_best[act] = torch.where(found, pick(tt), best)
+        bu[act] = torch.where(found, pick(uu), bu[act])
+        bv[act] = torch.where(found, pick(vv), bv[act])
+        prim[act] = torch.where(found, pick(tid.expand_as(tt)), prim[act])
+        streamed[act] += 1
+    return count
+
+
+def stream_trace_plain(sbvh: StreamBVH, origins, dirs, tmin: float, tmax, any_hit: bool):
+    """The plain version of K10. Returns {"t","u","v","prim"} (closest) or
+    {"hit"} (any-hit), with "candidates" (the cull's count), "streamed"
+    (the blocks popped) and "tests" (the ray-triangle tests the popped
+    blocks need: their triangles against the live rays, for any-hit those
+    not yet hit), int64 [ceil(N/128)] each."""
+    n = origins.shape[0]
+    o, d, tmin, tm = _sub_packets(origins, dirs, tmin, tmax)
+    p = o.shape[0]
+    live = tm >= tmin
+    t_best = tm.clone()
+    bu = torch.zeros_like(tm)
+    bv = torch.zeros_like(tm)
+    prim = torch.full_like(tm, -1, dtype=torch.int32)
+    if any_hit:  # a dead ray counts as decided, so its sub-packet can retire
+        prim[~live] = 0
+    candidates = torch.zeros(p, dtype=torch.int64, device=o.device)
+    streamed = torch.zeros_like(candidates)
+    tests = torch.zeros_like(candidates)
+    for c in _chunks(p, sbvh.n_blocks):  # slices: the chunk's state is a view
+        candidates[c] = _stream_chunk(sbvh, o[c], d[c], tmin, tm[c], any_hit,
+                                      (t_best[c], bu[c], bv[c], prim[c]), (streamed[c], tests[c]))
+    prim = prim.reshape(-1)[:n]
+    work = {"candidates": candidates, "streamed": streamed, "tests": tests}
+    if any_hit:
+        return {"hit": (prim >= 0) & live.reshape(-1)[:n], **work}
+    t = torch.where(prim < 0, MISS_T, t_best.reshape(-1)[:n])
+    return {"t": t, "u": bu.reshape(-1)[:n], "v": bv.reshape(-1)[:n], "prim": prim, **work}
+
+
+def _tmax(tmax, n: int, device) -> torch.Tensor:
+    if isinstance(tmax, torch.Tensor):
+        return tmax.to(torch.float32).expand(n).contiguous()
+    return torch.full((n,), float(tmax), dtype=torch.float32, device=device)
+
+
+def _check(sbvh: StreamBVH, origins, dirs, tmax):
+    """Raise unless the rays and the structure are what the kernels take."""
+    n, dev = origins.shape[0], origins.device
+    for name, x, shape in (("origins", origins, (n, 3)), ("dirs", dirs, (n, 3)),
+                           ("tmax", tmax, (n,)), ("boxes", sbvh.boxes, (sbvh.n_blocks, 8)),
+                           ("tris", sbvh.tris, (sbvh.n_blocks * sbvh.block_tris, 12))):
+        K.check_cuda(x, name, torch.float32, shape, dev, align=16 if name in ("boxes", "tris") else 1)
+    if sbvh.n_blocks < 2 or sbvh.n_blocks & (sbvh.n_blocks - 1):
+        raise ValueError(f"n_blocks {sbvh.n_blocks} is not a power of two >= 2")
+    if not 1 <= sbvh.block_tris <= MAX_BLOCK_TRIS:
+        raise ValueError(f"block_tris {sbvh.block_tris} outside 1..{MAX_BLOCK_TRIS}")
+    need = shared_bytes(sbvh)
+    if need > SHARED_BYTES:
+        raise ValueError(f"stream_trace: {sbvh.n_blocks} blocks of {sbvh.block_tris} triangles "
+                         f"need {need} bytes of shared memory a sub-packet, above the "
+                         f"{SHARED_BYTES} one block can hold")
+
+
+def shared_bytes(sbvh: StreamBVH) -> int:
+    """K10's dynamic shared memory: the candidate list (8 bytes a block,
+    rounded to 16) and two staged blocks of triangle slots."""
+    return -(-sbvh.n_blocks * 8 // 16) * 16 + 2 * sbvh.block_tris * 48
+
+
+def count_candidates(sbvh: StreamBVH, origins, dirs, tmin: float, tmax) -> torch.Tensor:
+    """K11 on CUDA tensors, its plain version on CPU tensors: int32
+    [ceil(N/128)], the candidate blocks of each sub-packet."""
+    n = origins.shape[0]
+    tmax = _tmax(tmax, n, origins.device)
+    if K.on_cpu(origins):
+        return stream_count_plain(sbvh, origins, dirs, tmin, tmax)
+    origins, dirs = origins.contiguous(), dirs.contiguous()
+    _check(sbvh, origins, dirs, tmax)
+    counts = torch.empty(-(-n // LANE), dtype=torch.int32, device=origins.device)
+    K11.launch(origins.device, K.ptr(origins), K.ptr(dirs), float(tmin), K.ptr(tmax),
+               K.ptr(sbvh.boxes), n, sbvh.n_blocks, K.ptr(counts))
+    return counts
+
+
+def stream_trace(sbvh: StreamBVH, origins, dirs, tmin: float, tmax, any_hit: bool, order=None):
+    """K10 on CUDA tensors, its plain version on CPU tensors. Returns
+    (t, u, v, prim) for closest hit (t = 1e30 on a miss), or the bool hit
+    mask for any-hit. `order` (int32 [ceil(N/128)], a permutation of the
+    sub-packets, as `balance_order` gives) is the order in which the card
+    starts them; it changes no result, so the plain version takes none."""
+    n = origins.shape[0]
+    tmax = _tmax(tmax, n, origins.device)
+    if K.on_cpu(origins):
+        out = stream_trace_plain(sbvh, origins, dirs, tmin, tmax, any_hit)
+        return out["hit"] if any_hit else (out["t"], out["u"], out["v"], out["prim"])
+    dev = origins.device
+    origins, dirs = origins.contiguous(), dirs.contiguous()
+    _check(sbvh, origins, dirs, tmax)
+    if order is not None:
+        K.check_cuda(order, "order", torch.int32, (-(-n // LANE),), dev)
+    args = (K.ptr(origins), K.ptr(dirs), float(tmin), K.ptr(tmax), K.ptr(sbvh.boxes),
+            K.ptr(sbvh.tris), None if order is None else K.ptr(order), n, sbvh.n_blocks,
+            sbvh.block_tris)
+    if any_hit:
+        hit = torch.empty(n, dtype=torch.bool, device=dev)
+        K10.launch(dev, *args, 1, None, None, None, None, K.ptr(hit))
+        return hit
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    K10.launch(dev, *args, 0, K.ptr(t), K.ptr(u), K.ptr(v), K.ptr(prim), None)
+    return t, u, v, prim
+
+
+def balance_order(counts: torch.Tensor) -> torch.Tensor:
+    """The sub-packets by descending candidate count, ties in index order
+    (the JAX package's _balance permutation), int32. K10 takes them in this
+    order, so the longest start first."""
+    return torch.argsort(-counts.long(), stable=True).to(torch.int32)
+
+
+def stream_closest(sbvh: StreamBVH, origins, dirs, tmin: float = 0.0, tmax=1e6,
+                   balance: bool = False):
+    """Closest-hit query. With `balance` K11 counts each sub-packet's
+    candidates first and K10 starts the sub-packets in descending order of
+    that count; the results are the same."""
+    order = None
+    if balance:
+        tmax = _tmax(tmax, origins.shape[0], origins.device)
+        order = balance_order(count_candidates(sbvh, origins, dirs, tmin, tmax))
+    t, u, v, prim = stream_trace(sbvh, origins, dirs, tmin, tmax, any_hit=False, order=order)
+    return {"t": t, "u": u, "v": v, "prim": prim}
+
+
+def stream_any(sbvh: StreamBVH, origins, dirs, tmin: float = 1e-4, tmax=1e6):
+    """Any-hit (shadow) query: True where a triangle is hit in (tmin, tmax)."""
+    return stream_trace(sbvh, origins, dirs, tmin, tmax, any_hit=True)

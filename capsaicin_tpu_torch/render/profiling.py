@@ -10,6 +10,8 @@ work is not counted twice. Needs a CUDA session; run on a GPU:
 
     python -m capsaicin_tpu_torch.render.profiling --width 1920 --height 1080 --frames 5
     python -m capsaicin_tpu_torch.render.profiling --scene colonnade --traversal bvh
+    python -m capsaicin_tpu_torch.render.profiling --scene colonnade --traversal stream \
+        --stream-block 64
 """
 
 from __future__ import annotations
@@ -105,15 +107,20 @@ def main(argv=None) -> int:
     ap.add_argument("--scene", choices=("cornell", "colonnade"), default="cornell",
                     help="the Cornell box (40 triangles) or the colonnade (~250k)")
     ap.add_argument("--traversal", default="auto",
-                    help="static, brute, bvh or auto (static up to 128 triangles, else bvh)")
+                    help="static, brute, bvh, stream or auto (static up to 128 triangles, "
+                    "else bvh)")
+    ap.add_argument("--stream-block", type=int, default=None,
+                    help="triangles per block of traversal stream (default 32)")
     ap.add_argument("--json", help="also write the result to this file")
     args = ap.parse_args(argv)
-    session = RenderSession(args.width, args.height, traversal=args.traversal)
+    session = RenderSession(args.width, args.height, traversal=args.traversal,
+                            stream_block_tris=args.stream_block)
     session.set_camera(make_camera(args.scene, args.width, args.height))
     session.set_scene(build_scene(colonnade() if args.scene == "colonnade" else cornell_box()))
     result = profile_frames(session, frames=args.frames)
+    block = f", block {session.accel.block_tris}" if args.traversal == "stream" else ""
     print(f"{result['device']} {args.scene} {args.width}x{args.height}, traversal "
-          f"{args.traversal}: wall {result['wall_ms']:.3f} "
+          f"{args.traversal}{block}: wall {result['wall_ms']:.3f} "
           f"ms/frame, device busy {result['busy_ms']:.3f} ms/frame, "
           f"idle share {result['idle_share']:.3f}")
     for name, ms in result["passes_ms"].items():

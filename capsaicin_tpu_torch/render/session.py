@@ -21,8 +21,8 @@ from ..ops.camera import Camera, camera_to, default_camera
 from ..scene import textures
 from . import pipeline, shading
 from .settings import RenderOptions, Settings, default_settings
-from .traversal import (build_accel, make_traversal, resolve_mode, with_ray_sorting,
-                        with_ray_sorting_any)
+from .traversal import (build_accel, make_stream_bounce_fns, make_traversal, resolve_mode,
+                        with_ray_sorting, with_ray_sorting_any)
 
 
 class RenderSession:
@@ -35,10 +35,12 @@ class RenderSession:
         traversal: str = "auto",
         camera: Optional[Camera] = None,
         device="cuda",
+        stream_block_tris: Optional[int] = None,
     ):
         """device: "cuda" (the default) runs the frame through the CUDA
         kernels and raises if CUDA is absent; "cpu" runs their plain
-        versions."""
+        versions. stream_block_tris: the block size of traversal="stream"
+        (None: ops.stream.BLOCK_TRIS, 32)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' for the CPU path")
@@ -49,6 +51,7 @@ class RenderSession:
         self.options = options or RenderOptions()
         self.settings = settings or default_settings()
         self.traversal_mode = traversal
+        self.stream_block_tris = stream_block_tris
         self.camera = camera_to(camera or default_camera(aspect=height / width), self.device)
         self.noise = torch.from_numpy(textures.blue_noise_256()).to(self.device)
         self.scene_dev = None
@@ -56,6 +59,7 @@ class RenderSession:
         self.accel = None
         self._trace = None
         self._sorted_trace = None
+        self._sorted_shadow = None
         self.state: Optional[pipeline.FrameState] = None
 
     # -- scene ------------------------------------------------------------
@@ -65,13 +69,19 @@ class RenderSession:
         form) and build its acceleration structure and shading tables."""
         scene_dev = convert.scene_from_numpy(scene, self.device)
         mode = resolve_mode(self.traversal_mode, scene_dev.tri_v0.shape[0])
-        self.accel = build_accel(scene_dev, mode)
+        self.accel = build_accel(scene_dev, mode, self.stream_block_tris)
         self._trace = make_traversal(mode, self.accel)
-        # the BVH mode traces bounce rays sorted when options.sort_bounce_rays
-        # holds, as the JAX package does for its packet kernel
+        # while options.sort_bounce_rays holds, the BVH and stream modes
+        # trace bounce rays sorted, as the JAX package does for its packet
+        # and stream kernels; the stream mode sorts the direct shadow rays
+        # too (by octant) and balances the bounce closest-hit trace
         closest, any_hit = self._trace
-        self._sorted_trace = ((with_ray_sorting(closest), with_ray_sorting_any(any_hit))
-                              if mode == "bvh" else None)
+        self._sorted_trace = self._sorted_shadow = None
+        if mode == "bvh":
+            self._sorted_trace = (with_ray_sorting(closest), with_ray_sorting_any(any_hit))
+        elif mode == "stream":
+            self._sorted_trace = make_stream_bounce_fns(self.accel)
+            self._sorted_shadow = with_ray_sorting_any(any_hit)
         self.shade = shading.shading_scene(scene_dev)
         self.scene_dev = scene_dev
         self.reset()
@@ -138,6 +148,7 @@ class RenderSession:
         bounce = bounce_any = None
         if self._sorted_trace is not None and self.options.sort_bounce_rays:
             bounce, bounce_any = self._sorted_trace
+            any_hit = self._sorted_shadow or any_hit
         display, self.state = pipeline.render_frame(
             self.shade, closest, any_hit, self.camera, self.state, self.settings,
             self.noise, self.width, self.height, self.options,

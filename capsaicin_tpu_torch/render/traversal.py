@@ -8,6 +8,8 @@ Backends:
              (kernel K1, ops.static)
   "brute"  - every ray against every triangle, any size (K8, ops.brute)
   "bvh"    - a median-built BVH walked per ray (K7, ops.bvh)
+  "stream" - per-128-ray cull of every leaf block, then the hit blocks
+             streamed nearest first (K10 and K11, ops.stream)
   "auto"   - "static" up to 128 triangles, else "bvh": the JAX package's
              rule on its production device
 """
@@ -16,28 +18,29 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import brute, bvh, static
+from ..ops import brute, bvh, static, stream
 
 _NOT_PORTED = {
     "wavefront": "ROADMAP A (not to be ported: pure-XLA backend)",
     "cull": "ROADMAP A (not to be ported: pure-XLA backend)",
-    "stream": "ROADMAP A10 and B5 (stream traversal)",
 }
 
 
 def resolve_mode(mode: str, num_triangles: int) -> str:
     if mode == "auto":
         return "static" if num_triangles <= static.MAX_STATIC_TRIS else "bvh"
-    if mode in ("static", "brute", "bvh"):
+    if mode in _BACKENDS:
         return mode
     if mode in _NOT_PORTED:
         raise NotImplementedError(f"traversal={mode!r} is not ported: {_NOT_PORTED[mode]}")
     raise ValueError(f"unknown traversal mode {mode!r}")
 
 
-def build_accel(scene, mode: str):
+def build_accel(scene, mode: str, stream_block_tris: int = None):
     """The acceleration structure of a resolved mode, from a Scene of
-    tensors, on the scene's device (the BVH is built on the host)."""
+    tensors, on the scene's device (the BVHs are built on the host).
+    `stream_block_tris` is the stream mode's block size (default
+    stream.BLOCK_TRIS)."""
     tris = torch.stack([scene.tri_v0, scene.tri_v1, scene.tri_v2], 1)
     if mode == "static":
         return static.build_static(tris)
@@ -45,6 +48,8 @@ def build_accel(scene, mode: str):
         return static.pack_triangles(tris)
     if mode == "bvh":
         return bvh.build_bvh(tris)
+    if mode == "stream":
+        return stream.build_stream_bvh(tris, stream_block_tris or stream.BLOCK_TRIS)
     raise ValueError(f"no acceleration structure for traversal {mode!r}")
 
 
@@ -52,6 +57,7 @@ _BACKENDS = {
     "static": (static.static_closest, static.static_any),
     "brute": (brute.brute_force_closest, brute.brute_force_any),
     "bvh": (bvh.bvh_closest, bvh.bvh_any),
+    "stream": (stream.stream_closest, stream.stream_any),
 }
 
 
@@ -96,3 +102,21 @@ def with_ray_sorting_any(any_fn, dir_grid: int = 0):
         return any_fn(o, d, tmin, tm)[inverse]
 
     return sorted_any
+
+
+def make_stream_bounce_fns(sbvh):
+    """The stream mode's bounce-ray trace functions, as the JAX package's:
+    both sort the rays by a 96-cell direction key (dir_grid=4), and the
+    closest-hit one also traces the sub-packets in descending order of
+    candidate count (K11, then K10 in that order). The any-hit one
+    is not balanced: a shadow ray stops at its first occluder, so the
+    candidate count says little of its work."""
+
+    def closest(origins, dirs, tmin, tmax):
+        return stream.stream_closest(sbvh, origins, dirs, tmin, tmax, balance=True)
+
+    def any_hit(origins, dirs, tmin, tmax):
+        return stream.stream_any(sbvh, origins, dirs, tmin, tmax)
+
+    return (with_ray_sorting(closest, dir_grid=4),
+            with_ray_sorting_any(any_hit, dir_grid=4))

@@ -2,13 +2,14 @@
 """Smoke test of the PyTorch/CUDA port (capsaicin_tpu_torch) on one NVIDIA
 GPU: builds the CUDA kernels from csrc/, holds each (and its bf16-storage
 instance) against its plain PyTorch version at the shapes of the 1080p
-frame, holds the BVH walk (K7) and the brute-force intersector (K8) to
-their plain versions on the full colonnade's 1080p rays, runs the walk
-microbenchmark (K9), renders the Cornell box at 1920x1080 with default
-options through the session API and checks that the frame went through
-every kernel, renders the other configurations of bench.py the same way
-(the colonnade through the BVH), then holds small CUDA renders against
-the CPU path. Every kernel's time stands beside its bound: the larger of
+frame, holds the BVH walk (K7), the brute-force intersector (K8) and the
+stream traversal (K10, with its count pass K11) to their plain versions on
+the full colonnade's 1080p rays and K10 to K7 on all of them, runs the
+walk microbenchmark (K9), renders the Cornell box at 1920x1080 with
+default options through the session API and checks that the frame went
+through every kernel, renders the other configurations of bench.py the
+same way (the colonnade through the BVH and through the stream at blocks
+of 32, 64 and 128), then holds small CUDA renders against the CPU path. Every kernel's time stands beside its bound: the larger of
 its bytes over 3.35 TB/s and its operations over 67 TFLOP/s (the H100
 SXM's HBM rate and float32 rate).
 
@@ -43,6 +44,10 @@ OPS_TRI = 45  # Moller-Trumbore: crosses, dots, one division
 OPS_ATTR = 60  # K2: interpolation of P, N, UV and the normalisation
 OPS_TAP = 30  # a stencil tap: the normal/depth/luma weights and the sums
 OPS_MICROSTEP = 25  # K9: a box test and the step's arithmetic
+# K10/K11: interval slab test of one block box against a sub-packet's
+# bounds: 12 sub, 24 mul, 46 min/max, 4 compares (csrc/stream_count.cu)
+OPS_IBOX = 86
+STREAM_BLOCKS = (32, 64, 128)  # K10's block sizes timed (bench.py:129-139)
 SUBSAMPLE = 65_536  # rays of the colonnade's sets the plain walk takes
 
 # Per-frame launches of the flagship frame (gi1080, default options)
@@ -95,10 +100,23 @@ CONFIGS += [
     ("gi1080_brute", dict(width=W, height=H, traversal="brute"), 8,
      dict(brute_trace=4, static_trace=0, bvh_trace=0, hit_attributes=3)),
 ]
+COLONNADE_STREAM = dict(COLONNADE, traversal="stream")
+STREAM_LAUNCHES = dict(stream_trace=4, stream_count=1, hit_attributes=3, bvh_trace=0,
+                       static_trace=0, brute_trace=0)
+CONFIGS += [
+    # bench.py:129-139: the colonnade through the stream, blocks of 32, 64, 128
+    ("colonnade_stream", COLONNADE_STREAM, 8, STREAM_LAUNCHES),
+    ("colonnade_stream64", dict(COLONNADE_STREAM, stream_block_tris=64), 8, STREAM_LAUNCHES),
+    ("colonnade_stream128", dict(COLONNADE_STREAM, stream_block_tris=128), 8, STREAM_LAUNCHES),
+    # without the bounce-ray sort there is no balance, so no count pass
+    ("colonnade_stream_nosort", dict(COLONNADE_STREAM, options=dict(sort_bounce_rays=False)), 8,
+     dict(STREAM_LAUNCHES, stream_count=0)),
+]
 # The configuration (or phase) whose run is the path of a kernel not on the
 # flagship's
 PATH_OF = {"eaw_pair": "gi1080_eaw_fused1", "bvh_trace": "colonnade",
-           "brute_trace": "gi1080_brute", "microstep": "microstep"}
+           "brute_trace": "gi1080_brute", "microstep": "microstep",
+           "stream_trace": "colonnade_stream", "stream_count": "colonnade_stream"}
 
 
 def check(cond, what: str):
@@ -170,7 +188,7 @@ def host_scene(scene: str):
 
 
 def make_session(width, height, device, options=None, scene="cornell", atlas_u32=False,
-                 traversal="auto"):
+                 traversal="auto", stream_block_tris=None):
     """A session with the scene uploaded; its set_scene time (build and
     upload, synchronised) in `session.setup_s`."""
     import torch
@@ -181,7 +199,8 @@ def make_session(width, height, device, options=None, scene="cornell", atlas_u32
     from capsaicin_tpu_torch.scene.scene import quantize_atlas
 
     session = RenderSession(width, height, options=RenderOptions(**(options or {})),
-                            device=device, traversal=traversal)
+                            device=device, traversal=traversal,
+                            stream_block_tris=stream_block_tris)
     session.set_camera(make_camera("colonnade" if scene.startswith("colonnade") else "cornell",
                                    width, height))
     host = host_scene(scene)
@@ -498,7 +517,8 @@ def compare_bvh(report):
     bounce and NEE of the third frame): against its plain version and K8
     on a subsample, against K7 over trees of other leaf sizes and through
     the ray sort on all rays; its times at leaf 4, 8 and 32; and K2 on the
-    colonnade's 249,190-row table."""
+    colonnade's 249,190-row table. Returns the four ray sets, the triangles
+    and the leaf-4 tree, for compare_stream."""
     import torch
 
     from capsaicin_tpu_torch.ops import brute, bvh, lookup, static, traverse
@@ -604,6 +624,147 @@ def compare_bvh(report):
                                     large_table_ms=k2_ms, large_table_plain_ms=k2_plain,
                                     large_table_bound_ms=large["bound_ms"])
     del session
+    return calls, tris, acc
+
+
+def compare_stream(report, calls, tris, tree7):
+    """K10 and K11 on the full colonnade's 1080p rays (the four sets of
+    compare_bvh): K10 against its plain version on a subsample of whole
+    sub-packets and against K7 on all rays, K11 against its plain version
+    on all rays, the bounce set balanced against unbalanced; K10's times at
+    blocks of 32, 64 and 128 beside K7's and K11's."""
+    import torch
+
+    from capsaicin_tpu_torch.ops import bvh, stream
+    from capsaicin_tpu_torch.render.traversal import make_stream_bounce_fns
+
+    builds = {b: stream.build_stream_bvh(tris, b) for b in STREAM_BLOCKS}
+    acc = builds[stream.BLOCK_TRIS]
+    for b, sb in builds.items():
+        print(f"colonnade stream blocks of {b}: {sb.n_blocks} blocks "
+              f"({int((sb.boxes[:, 3] > 0).sum())} not empty), K10 shared memory "
+              f"{stream.shared_bytes(sb)} B a sub-packet")
+    names = ("primary", "shadow", "bounce", "nee")
+    per_set, errs = {}, []
+    for name, (kind, o, d, tmin, tmax) in zip(names, calls):
+        any_hit = kind == "any"
+        n = o.shape[0]
+        p = -(-n // stream.LANE)
+        what = f"K10 {kind} ({name})"
+        full = stream.stream_trace(acc, o, d, tmin, tmax, any_hit)
+        k7 = bvh.bvh_trace(tree7, o, d, tmin, tmax, any_hit)
+        if any_hit:
+            hold_any(f"{what} vs K7, all rays", full, k7)
+        else:
+            hold_hits(f"{what} vs K7, all rays", full, k7, hits_only=True)
+        # a subsample of whole sub-packets, so each pops what it pops in the full run
+        sp = torch.arange(0, p, max(1, p * stream.LANE // SUBSAMPLE), device=o.device)
+        sp = sp[:SUBSAMPLE // stream.LANE]
+        idx = (sp[:, None] * stream.LANE + torch.arange(stream.LANE, device=o.device)).reshape(-1)
+        idx = idx[idx < n]
+        so, sd, stm = o[idx], d[idx], tmax[idx]
+        sub = stream.stream_trace(acc, so, sd, tmin, stm, any_hit)
+        plain, plain_ms = timed(lambda: stream.stream_trace_plain(acc, so, sd, tmin, stm, any_hit))
+        if any_hit:
+            check(torch.equal(sub, full[idx]), f"{what}: the subsample's hits differ from the full run's")
+            hold_any(f"{what} vs its plain version", sub, plain["hit"])
+        else:
+            check(all(torch.equal(a, b[idx]) for a, b in zip(sub, full)),
+                  f"{what}: the subsample's hits differ from the full run's")
+            errs.append(hold_hits(f"{what} vs its plain version", sub,
+                                  tuple(plain[k] for k in ("t", "u", "v", "prim"))))
+        counts = stream.count_candidates(acc, o, d, tmin, tmax)
+        counts_plain, count_plain_ms = timed(lambda: stream.stream_count_plain(acc, o, d, tmin, tmax))
+        check(torch.equal(counts, counts_plain), f"K11 ({name}): counts differ from the plain version's")
+        check(torch.equal(counts[sp].long(), plain["candidates"]),
+              f"K11 ({name}): counts differ from the plain trace's candidates")
+        times = {b: cuda_ms(lambda sb=sb: stream.stream_trace(sb, o, d, tmin, tmax, any_hit), 3)
+                 for b, sb in builds.items()}
+        k7_ms = cuda_ms(lambda: bvh.bvh_trace(tree7, o, d, tmin, tmax, any_hit), 3)
+        k11_ms = cuda_ms(lambda: stream.count_candidates(acc, o, d, tmin, tmax), 5)
+        # the plain version's work on the subsample, scaled to all
+        # sub-packets: the cull of each sub-packet with a live ray, and the
+        # triangle tests the popped blocks need (their triangles against
+        # the live rays, for any-hit those not yet hit)
+        cand = float(plain["candidates"].double().mean())
+        streamed = float(plain["streamed"].double().mean())
+        tests = float(plain["tests"].double().mean())
+        bt = acc.block_tris
+        live_sp = int(torch.nn.functional.pad(tmax >= tmin, (0, p * stream.LANE - n))
+                      .reshape(p, stream.LANE).any(1).sum())
+        cull_ops = live_sp * acc.n_blocks * OPS_IBOX
+        ops = cull_ops + p * tests * OPS_TRI
+        # each input read once: the rays (28 B), the box table and the
+        # triangle slots; the results out (16 B, any-hit 1 B)
+        table = (acc.boxes.numel() + acc.tris.numel()) * 4
+        nbytes = n * (28 + (1 if any_hit else 16)) + table
+        # the bytes if every sub-packet read the box table and its streamed
+        # blocks from device memory (the table stays in L2)
+        streamed_bytes = n * (28 + (1 if any_hit else 16)) + p * (acc.n_blocks * 32
+                                                                   + streamed * bt * 48)
+        entry = dict(rays=n, live=int((tmax >= tmin).sum()), sub_packets=p,
+                     live_sub_packets=live_sp, candidates_per_sub_packet=cand,
+                     streamed_per_sub_packet=streamed, tests_per_sub_packet=tests,
+                     slot_tests_per_sub_packet=streamed * stream.LANE * bt,
+                     max_candidates=int(counts.max()), max_streamed=int(plain["streamed"].max()),
+                     ms_by_block=times, k7_ms=k7_ms, plain_ms=plain_ms, plain_rays=len(idx),
+                     streamed_bytes=streamed_bytes,
+                     streamed_bytes_ms=streamed_bytes / HBM_BYTES_PER_S * 1e3,
+                     count_ms=k11_ms, count_plain_ms=count_plain_ms,
+                     count_bound=bound(cull_ops, n * 28 + p * 4 + acc.boxes.numel() * 4),
+                     **bound(ops, nbytes))
+        if name == "bounce":  # the session balances this set
+            bal = stream.stream_closest(acc, o, d, tmin, tmax, balance=True)
+            check(all(torch.equal(bal[k], x) for k, x in zip(("t", "u", "v", "prim"), full)),
+                  f"{what}: the balanced trace gives other hits")
+            entry["balanced_ms"] = cuda_ms(
+                lambda: stream.stream_closest(acc, o, d, tmin, tmax, balance=True), 3)
+        if name in ("bounce", "nee"):
+            # the session's trace of this set: sorted by the 96-cell
+            # direction key, the closest-hit one balanced; and K10 alone on
+            # the sorted rays, balanced or not
+            sorted_fn = make_stream_bounce_fns(acc)[1 if any_hit else 0]
+            got = sorted_fn(o, d, tmin, tmax)
+            got = got if any_hit else tuple(got[k] for k in ("t", "u", "v", "prim"))
+            check(torch.equal(got, full) if any_hit else all(map(torch.equal, got, full)),
+                  f"{what}: the session's sorted trace gives other hits")
+            entry["session_trace_ms"] = cuda_ms(lambda: sorted_fn(o, d, tmin, tmax), 3)
+            order, _ = bvh.sort_rays_for_traversal(o, d, dead=tmax < tmin, dir_grid=4)
+            oo, od, otm = o[order].contiguous(), d[order].contiguous(), tmax[order].contiguous()
+            sorted_counts = stream.count_candidates(acc, oo, od, tmin, otm)
+            entry["sorted_candidates_per_sub_packet"] = float(sorted_counts.double().mean())
+            entry["sorted_max_candidates"] = int(sorted_counts.max())
+            entry["sorted_ms"] = cuda_ms(
+                lambda: stream.stream_trace(acc, oo, od, tmin, otm, any_hit), 3)
+            if not any_hit:
+                entry["sorted_balanced_ms"] = cuda_ms(
+                    lambda: stream.stream_closest(acc, oo, od, tmin, otm, balance=True), 3)
+        per_set[name] = entry
+        print(f"{what}: {n} rays, {p} sub-packets ({live_sp} with a live ray); {cand:.1f} "
+              f"candidate blocks, {streamed:.1f} streamed and {tests:.0f} triangle tests needed "
+              f"(of {streamed * stream.LANE * bt:.0f} slot tests) per sub-packet (plain, "
+              f"{len(idx)} rays); K10 ms by block "
+              f"{times} (K7 {k7_ms:.4f}); plain {plain_ms:.1f} ms; bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']}); K11 {k11_ms:.4f} ms (plain {count_plain_ms:.1f}, bound "
+              f"{entry['count_bound']['bound_ms']:.4f})"
+              + f"; max candidates {entry['max_candidates']}, max streamed {entry['max_streamed']}"
+              + (f"; balanced {entry['balanced_ms']:.4f} ms" if "balanced_ms" in entry else "")
+              + (f"; sorted (dir_grid 4): {entry['sorted_candidates_per_sub_packet']:.1f} "
+                 f"candidates (max {entry['sorted_max_candidates']}), K10 {entry['sorted_ms']:.4f} ms"
+                 + (f", balanced {entry['sorted_balanced_ms']:.4f} ms"
+                    if "sorted_balanced_ms" in entry else "")
+                 + f"; the session's sort and trace {entry['session_trace_ms']:.4f} ms"
+                 if "sorted_ms" in entry else ""))
+    mean = lambda key: sum(e[key] for e in per_set.values()) / len(per_set)  # noqa: E731
+    report["stream_trace"] = dict(
+        max_abs_err=max(errs), ms=sum(e["ms_by_block"][acc.block_tris] for e in per_set.values())
+        / len(per_set), plain_ms=mean("plain_ms"), plain_rays=SUBSAMPLE, bound_ms=mean("bound_ms"),
+        bound_by=per_set["bounce"]["bound_by"], library_ms=None, block_tris=acc.block_tris,
+        per_set=per_set)
+    report["stream_count"] = dict(
+        max_abs_err=0.0, ms=mean("count_ms"), plain_ms=mean("count_plain_ms"),
+        bound_ms=sum(e["count_bound"]["bound_ms"] for e in per_set.values()) / len(per_set),
+        bound_by=per_set["bounce"]["count_bound"]["bound_by"], library_ms=None)
 
 
 def compare_microstep(report):
@@ -686,10 +847,10 @@ def main() -> int:
     import numpy as np
 
     from capsaicin_tpu_torch import kernels as K
-    # importing registers the kernels: K1, K2, K3-K6, K7, K8, K9
+    # importing registers the kernels: K1, K2, K3-K6, K7, K8, K10, K11, K9
     from capsaicin_tpu_torch.ops import static  # noqa: F401
     from capsaicin_tpu_torch.ops import lookup, stencil  # noqa: F401
-    from capsaicin_tpu_torch.ops import bvh, brute  # noqa: F401
+    from capsaicin_tpu_torch.ops import bvh, brute, stream  # noqa: F401
     from capsaicin_tpu_torch.tools import microstep  # noqa: F401
 
     # 1. device
@@ -711,7 +872,9 @@ def main() -> int:
     report = {}
     compare_trace(session, report)
     compare_stencils(session, report)
-    compare_bvh(report)
+    calls, tris, tree7 = compare_bvh(report)
+    compare_stream(report, calls, tris, tree7)
+    del calls, tris, tree7
     microstep_launches = compare_microstep(report)
 
     # 4. the flagship, gi1080 with default options, through the session
@@ -756,7 +919,9 @@ def main() -> int:
                        dict(options=dict(lowres_indirect=True, spp=2), scene="textured")),
                       ('eaw_fused="1" eaw_bf16', dict(options=dict(eaw_fused="1", eaw_bf16=True))),
                       ("colonnade(target_tris=20000), bvh",
-                       dict(scene="colonnade20k", traversal="bvh"))):
+                       dict(scene="colonnade20k", traversal="bvh")),
+                      ("colonnade(target_tris=20000), stream",
+                       dict(scene="colonnade20k", traversal="stream"))):
         images = {}
         for device in ("cuda", "cpu"):
             small = make_session(SMALL, SMALL, device, **cfg)
@@ -773,7 +938,7 @@ def main() -> int:
              **report[k.name])
         for k in K.REGISTRY
     ]
-    check(len(kernels) == 9, f"{len(kernels)} kernels registered, expected 9")
+    check(len(kernels) == 11, f"{len(kernels)} kernels registered, expected 11")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for k in kernels:

@@ -6,7 +6,10 @@ The JAX frames come from one module-scoped RenderSession(32, 32,
 traversal="bvh"): its scene, BVH and trace functions (the stackless walk)
 in one jitted frame that also returns the PassOutputs.
 The port renders the same frames through ops/bvh.py (kernel K7's plain
-version on CPU tensors) with its own ray-sorting wrappers. Every
+version on CPU tensors) with its own ray-sorting wrappers, and again
+through ops/stream.py (K10's and K11's plain versions, traversal="stream",
+the JAX package's stream trace functions): the JAX package holds its
+stream frame to its BVH frame, so one JAX fixture serves both. Every
 PassOutputs field is compared as tests/test_torch_pipeline.py compares
 them: hit ids equal except on edge pixels (at most 1%), images to rtol
 1e-3 / atol 1e-4 elsewhere, and the display to RMSE <= 1e-3, with one
@@ -17,8 +20,8 @@ package alone): the JAX package rounds u and v of a hit, or the
 interpolated position, an ulp otherwise than the port, and a ray that
 leaves a faceted sphere near its terminator is occluded or not by the
 next facet. Every trace call itself agrees. Port-only checks: "brute" frames equal
-"static" frames, the bounce-ray sort changes no pixel, and "auto" takes
-the BVH above 128 triangles."""
+"static" frames, the bounce-ray sort changes no pixel, the stream's block
+size changes no pixel, and "auto" takes the BVH above 128 triangles."""
 
 import jax
 import numpy as np
@@ -30,7 +33,7 @@ from capsaicin_tpu.render.settings import RenderOptions as JOptions
 from capsaicin_tpu.scene import build_scene as jbuild_scene
 from capsaicin_tpu.scene.procedural import colonnade as jcolonnade
 from capsaicin_tpu.scene.procedural import make_camera as jmake_camera
-from capsaicin_tpu_torch.ops import brute, bvh
+from capsaicin_tpu_torch.ops import brute, bvh, stream
 from capsaicin_tpu_torch.render import pipeline as tpipe
 from capsaicin_tpu_torch.render.session import RenderSession
 from capsaicin_tpu_torch.render.settings import RenderOptions
@@ -76,12 +79,11 @@ def _session(w, h, **kw):
     return RenderSession(w, h, options=options, device="cpu", **kw)
 
 
-def test_bvh_frames_match_jax(jax_frames):
-    s = _session(W, H, traversal="bvh")
-    s.set_camera(make_camera("colonnade", W, H))
-    s.set_scene(build_scene(colonnade(target_tris=SMALL)))
-    assert isinstance(s.accel, bvh.DeviceBVH)
-    closest, any_hit = s._trace
+def _hold_frames(s, jax_frames, any_hit=None):
+    """The session's frames, with its sorted trace functions, against the
+    JAX frames, pass by pass. `any_hit` replaces the direct-shadow trace."""
+    closest, plain_any = s._trace
+    any_hit = any_hit or plain_any
     bounce, bounce_any = s._sorted_trace
     state = s.state
     for want_display, want_aux in jax_frames:
@@ -108,6 +110,45 @@ def test_bvh_frames_match_jax(jax_frames):
         img = display.numpy()
         assert np.isfinite(img).all()
         assert float(np.sqrt(np.mean((img - want_display) ** 2))) <= RMSE_BAR
+
+
+def _colonnade_session(**kw):
+    s = _session(W, H, **kw)
+    s.set_camera(make_camera("colonnade", W, H))
+    s.set_scene(build_scene(colonnade(target_tris=SMALL)))
+    return s
+
+
+def test_bvh_frames_match_jax(jax_frames):
+    s = _colonnade_session(traversal="bvh")
+    assert isinstance(s.accel, bvh.DeviceBVH)
+    _hold_frames(s, jax_frames)
+
+
+def test_stream_frames_match_jax(jax_frames, monkeypatch):
+    """The stream mode's frames (the plain K10 and K11, the sorted and
+    balanced bounce traces, the octant-sorted direct shadow rays) against
+    the JAX package's BVH frames: the JAX package holds its stream frame
+    to its BVH frame (tests/test_stream.py), so that frame is the
+    reference here too."""
+    calls = []
+    count = stream.stream_count_plain
+    monkeypatch.setattr(stream, "stream_count_plain", lambda *a: calls.append(1) or count(*a))
+    s = _colonnade_session(traversal="stream")
+    assert isinstance(s.accel, stream.StreamBVH) and s.accel.block_tris == stream.BLOCK_TRIS
+    _hold_frames(s, jax_frames, any_hit=s._sorted_shadow)
+    assert len(calls) == FRAMES  # the bounce closest-hit trace was balanced
+
+
+def test_stream_block_size_changes_no_pixel():
+    images = {}
+    for block in (32, 64):
+        s = _session(16, 16, traversal="stream", stream_block_tris=block)
+        s.set_camera(make_camera("colonnade", 16, 16))
+        s.set_scene(build_scene(colonnade(target_tris=SMALL)))
+        assert s.accel.block_tris == block
+        images[block] = [s.render() for _ in range(2)]
+    np.testing.assert_allclose(np.stack(images[32]), np.stack(images[64]), rtol=0, atol=1e-6)
 
 
 def test_brute_frames_equal_static_frames(monkeypatch):
@@ -144,11 +185,11 @@ def test_auto_takes_the_bvh_above_128_triangles():
     assert resolve_mode("auto", 128) == "static"
     assert resolve_mode("auto", 129) == "bvh"
     assert resolve_mode("auto", 249_190) == "bvh"
-    for mode in ("brute", "bvh", "static"):
+    for mode in ("brute", "bvh", "static", "stream"):
         assert resolve_mode(mode, 40) == mode
     s = _session(8, 8, traversal="auto")
     s.set_scene(build_scene(colonnade(target_tris=SMALL)))
     assert isinstance(s.accel, bvh.DeviceBVH) and s._sorted_trace is not None
     assert s.accel.leaf_size == bvh.LEAF_SIZE
     with pytest.raises(NotImplementedError):
-        resolve_mode("stream", 40)
+        resolve_mode("wavefront", 40)

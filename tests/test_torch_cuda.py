@@ -5,7 +5,8 @@ bf16 rounding by an ulp), the launches of a default-options frame, and
 frames free of host syncs. The intersectors (K7 BVH walk, K8 brute force)
 are held to hit ids equal except at equal t (rtol 1e-4) or on triangle
 edges, t/u/v within 1e-5 where the ids agree; the walk benchmark (K9)
-exactly.
+exactly; the stream traversal (K10, K11), which pops blocks in the order
+of its plain version, to hit ids and counts equal and t/u/v within 1e-5.
 
 Marked `cuda`: each test skips, with the reason, where CUDA is unavailable
 (the decision is taken inside the fixture, never at import). On a machine
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 from capsaicin_tpu_torch import kernels
-from capsaicin_tpu_torch.ops import brute, bvh, lookup, static, stencil, traverse
+from capsaicin_tpu_torch.ops import brute, bvh, lookup, static, stencil, stream, traverse
 from capsaicin_tpu_torch.ops import camera as cam
 from capsaicin_tpu_torch.render.session import RenderSession
 from capsaicin_tpu_torch.render.settings import RenderOptions, default_settings
@@ -157,7 +158,10 @@ def test_eaw_pair_and_bf16_kernels(dev, strides):
     (dict(scene="colonnade"), dict(bvh_trace=4, hit_attributes=3, static_trace=0,
                                    brute_trace=0)),
     (dict(traversal="brute"), dict(brute_trace=4, static_trace=0, bvh_trace=0)),
-], ids=["default", "fused1", "fused13_bf16", "lowres_spp2", "colonnade", "brute"])
+    (dict(scene="colonnade", traversal="stream"), dict(stream_trace=4, stream_count=1,
+                                                      bvh_trace=0, hit_attributes=3)),
+], ids=["default", "fused1", "fused13_bf16", "lowres_spp2", "colonnade", "brute",
+        "colonnade_stream"])
 def test_frame_launch_counts(dev, kw, per_frame):
     s = _session(64, 48, dev, **kw)
     kernels.reset_counts()
@@ -170,8 +174,10 @@ def test_frame_launch_counts(dev, kw, per_frame):
 
 
 @pytest.mark.parametrize("kw", [dict(gather=False), dict(), dict(lowres_indirect=True, spp=2),
-                                dict(scene="colonnade")],
-                         ids=["no_gather", "default", "lowres_spp2", "colonnade"])
+                                dict(scene="colonnade"),
+                                dict(scene="colonnade", traversal="stream")],
+                         ids=["no_gather", "default", "lowres_spp2", "colonnade",
+                              "colonnade_stream"])
 def test_render_async_never_waits_for_the_device(dev, kw):
     """After the first frame has uploaded the per-device constants, a frame
     makes no call that synchronises with the device."""
@@ -291,3 +297,59 @@ def test_microstep_kernel(dev, variant):
     got = microstep.microstep(variant, rays, nodes, 50)
     assert microstep.K9.launches == before + 1
     assert torch.equal(got, microstep.microstep_plain(variant, rays, nodes, 50))
+
+
+@pytest.mark.parametrize("block_tris", [32, 64])
+def test_stream_kernels(dev, block_tris):
+    """K10 and K11 against their plain versions on the four ray sets of a
+    reduced-colonnade frame (64x48, the second frame), and the balanced
+    closest-hit trace against the unbalanced one."""
+    s = RenderSession(64, 48, options=RenderOptions(sort_bounce_rays=False), device=dev,
+                      traversal="stream", stream_block_tris=block_tris)
+    s.set_camera(make_camera("colonnade", 64, 48))
+    s.set_scene(build_scene(colonnade(target_tris=2000)))
+    assert s.accel.block_tris == block_tris
+    calls = []
+
+    def record(any_hit, fn):
+        def traced(o, d, tmin, tmax):
+            calls.append((any_hit, o.contiguous(), d.contiguous(), tmin, tmax))
+            return fn(o, d, tmin, tmax)
+        return traced
+
+    closest, any_fn = s._trace
+    s._trace = (record(False, closest), record(True, any_fn))
+    for _ in range(2):
+        calls.clear()
+        s.render_async()
+    assert [c[0] for c in calls] == [False, True, False, True]
+    for any_hit, o, d, tmin, tmax in calls:
+        tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(o.shape[0])
+        tmax = tmax.contiguous()
+        before = (stream.K10.launches, stream.K11.launches)
+        got = stream.stream_trace(s.accel, o, d, tmin, tmax, any_hit)
+        counts = stream.count_candidates(s.accel, o, d, tmin, tmax)
+        assert (stream.K10.launches, stream.K11.launches) == (before[0] + 1, before[1] + 1)
+        plain = stream.stream_trace_plain(s.accel, o, d, tmin, tmax, any_hit)
+        assert torch.equal(counts.long(), plain["candidates"])
+        reverse = torch.arange(counts.shape[0] - 1, -1, -1, dtype=torch.int32, device=dev)
+        if any_hit:
+            assert torch.equal(got, plain["hit"])
+            assert torch.equal(stream.stream_trace(s.accel, o, d, tmin, tmax, True, reverse), got)
+            continue
+        assert torch.equal(got[3], plain["prim"])
+        for a, k in zip(got[:3], ("t", "u", "v")):
+            torch.testing.assert_close(a, plain[k], rtol=0, atol=1e-5)
+        bal = stream.stream_closest(s.accel, o, d, tmin, tmax, balance=True)
+        assert all(torch.equal(bal[k], x) for k, x in zip(("t", "u", "v", "prim"), got))
+
+
+def test_stream_trace_raises_beyond_shared_memory(dev):
+    """A candidate list one block cannot hold raises with the numbers; it
+    never falls back to the plain version."""
+    n_blocks = 1 << 15  # 256 KB of keys
+    sbvh = stream.StreamBVH(torch.zeros((n_blocks, 8), device=dev),
+                            torch.zeros((n_blocks, 12), device=dev), n_blocks, 1)
+    o = torch.zeros((128, 3), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        stream.stream_trace(sbvh, o, o + 1.0, 0.0, 1e6, False)

@@ -203,13 +203,15 @@ def test_session_raises_on_unported_options(kw):
 
 
 def test_session_raises_on_unported_scenes_and_traversal():
-    """The stream traversal still raises; a textured scene (from the JAX
-    package's host Scene, with either atlas) renders."""
+    """The pure-XLA traversals, which are not to be ported, raise; a
+    textured scene (from the JAX package's host Scene, with either atlas)
+    renders."""
     from capsaicin_tpu.scene.scene import quantize_atlas as jquantize_atlas
 
-    session = RenderSession(W, H, device="cpu", traversal="stream")
-    with pytest.raises(NotImplementedError):
-        session.set_scene(build_scene(cornell_box()))
+    for mode in ("wavefront", "cull"):
+        session = RenderSession(W, H, device="cpu", traversal=mode)
+        with pytest.raises(NotImplementedError):
+            session.set_scene(build_scene(cornell_box()))
     textured = jbuild_scene(*jcornell_box_textured())
     images = [_render_16(RenderOptions(), scene, frames=1)
               for scene in (textured, jquantize_atlas(textured))]
