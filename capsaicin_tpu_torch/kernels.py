@@ -174,6 +174,15 @@ def load() -> ctypes.CDLL:
     return _library()
 
 
+def call(symbol: str, argtypes: Sequence, *args) -> int:
+    """Call a C function of the library that launches no kernel (a query
+    of a kernel's attributes); returns its error code. Counts nothing."""
+    fn = getattr(_library(), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = i32
+    return fn(*args)
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

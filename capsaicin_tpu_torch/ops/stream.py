@@ -6,16 +6,30 @@ Rays go in sub-packets of LANE = 128: sub-packet i is rays
 [128 i, 128 i + 128), the last one padded with dead rays. Each sub-packet
 takes the interval bounds of its live rays (origin, inverse direction,
 tmin, tmax) and tests them against EVERY leaf-block box at once (the cull:
-an interval slab test, so no stack walk). The blocks it hits are streamed
-nearest first, in (conservative entry distance, block id) order, and each
-popped block's triangles are tested against the sub-packet's 128 rays in
-slot order. Before each pop the sub-packet's cap is taken again (the
-largest reach min(t_best, tmax) of its live rays; for any-hit the largest
-tmax of its live rays that have no hit yet), and the stream stops at the
-first block whose entry lies beyond it. The cap never rises and the
-entries never fall, so no later block could be popped either. K11 is the
-cull alone: the candidate count of each sub-packet, which `balance_order`
-sorts by.
+an interval slab test, so no stack walk). The blocks it hits are sorted
+nearest first, in (conservative entry distance, block id) order. Each
+warp of the sub-packet (32 rays) then streams that list on its own: before
+each pop it takes its cap (the largest reach min(t_best, tmax) of its live
+rays; for any-hit the largest tmax of its live rays that have no hit yet)
+and stops at the first block whose entry lies beyond it. The cap never
+rises and the entries never fall, so no later block could be popped
+either. Each ray still searching slab-tests the popped block's own box
+against its reach, padded by BOX_PAD of the coordinates' magnitude so
+that the test is conservative (`_ray_box`), and tests the block's
+triangles in slot order only where it passes. A ray thus meets its blocks
+in the order of the sub-packet's list and skips only blocks that hold no
+hit for it: the results are those of the whole sub-packet popping every
+block up to its cap, which is what the TPU kernel does. K11 is the cull
+alone: the candidate count of each sub-packet, which `balance_order` sorts
+by.
+
+On the card K10 is a persistent grid (`launch_plan`): as many blocks of
+128 threads as are resident, each taking sub-packets from an atomic
+counter, in `balance_order` where one is given. Its shared memory is a
+fixed SHARED_BYTES, under SHARED_CEILING whatever the scene: a candidate
+list longer than TILE keys goes to a scratch in device memory, which the
+wrapper allocates (two lists of n_blocks keys a resident block), so
+n_blocks is limited by device memory alone.
 
 The structure (`StreamBVH`) is the median BVH of ops.lbvh with leaves of
 `block_tris` triangles; leaf b is heap node n_leaves + b, and n_leaves is
@@ -30,15 +44,16 @@ a power of two, so many blocks of a scene are empty:
 
 Contracts, as the JAX package's: closest hit returns t = 1e30 on a miss
 (as K8, not tmax as K1 and K7) and u = v = 0; any-hit counts a dead ray
-(tmax < tmin) as decided, so a sub-packet retires once its live rays have
-all hit, and reports it as not hit. tmin is a scalar, tmax a scalar or [N].
+(tmax < tmin) as decided, so a warp retires once its live rays have all
+hit, and reports it as not hit. tmin is a scalar, tmax a scalar or [N].
 
 The plain versions (`stream_count_plain`, `stream_trace_plain`) compute
-the same cull and pop the same blocks in the same order, vectorised over
-sub-packets. The TPU kernel extracts the next block one step ahead of its
-triangle test (its DMA pipeline), so it may pop one block past the cap; a
-block past the cap holds no hit for any ray of the sub-packet, so the
-results agree.
+the same cull and each warp's pops in the same order, vectorised over
+warps, and count K10's work: the blocks each warp pops, the box tests and
+the triangle tests. The TPU kernel extracts the next block one step ahead
+of its triangle test (its DMA pipeline) and tests every ray of its
+sub-packet against every popped block; a block past a ray's reach holds no
+hit for it, so the results agree.
 
 Not carried over, since none changes a result: the gang of 8 sub-packets
 (TPU sublanes), the `hier` and `near_first` extraction variants, the DMA
@@ -47,6 +62,9 @@ valid mask of the TPU kernel's loop.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -57,19 +75,32 @@ from .bvh import pack_tris
 from .traverse import _mt_single, _safe_inv
 
 LANE = 128  # rays per sub-packet
+WARP = 32  # rays per warp, which streams the sub-packet's list on its own
+WARPS = LANE // WARP
 BLOCK_TRIS = 32  # triangles per block (the BVH leaf), the JAX package's default
-MAX_BLOCK_TRIS = 128  # the kernels stage at most this many triangles a block
+MAX_BLOCK_TRIS = 128  # the most triangles a block that K10 takes
 MISS_T = 1e30
 BIG = 1e30  # the bound of a sub-packet without live rays
-# Hopper's opt-in shared memory per block (227 KB), less the kernel's static
-# shared memory; K10 holds a sub-packet's candidate list and two staged blocks
-SHARED_BYTES = 232_448 - 1024
+# the per-ray box test's pad, a fraction of the largest coordinate magnitude
+# of the box and the ray origin (STREAM_BOX_PAD, csrc/stream_trace.cu)
+BOX_PAD = torch.tensor(1e-5, dtype=torch.float32)
+# K10's shared memory, whatever n_blocks is (csrc/stream_trace.cu): a tile of
+# TILE keys sorted in place, each warp's bounds values and stage of
+# STAGE_TRIS triangle slots, two counters (and up to 8 bytes of alignment),
+# under the ceiling that keeps 8 blocks of 128 threads on an SM
+TILE = 2048
+STAGE_TRIS = 32
+SHARED_BYTES = TILE * 8 + WARPS * (13 * 4 + STAGE_TRIS * 48) + 16
+SHARED_CEILING = 24_576
+# K10's candidate lists in device memory: two lists of n_blocks 8-byte keys
+# for each resident block, and a counter; the grid shrinks to stay under this
+SCRATCH_BUDGET = 1 << 32
 PAIRS_PER_CHUNK = 1 << 24  # sub-packets x blocks per cull of the plain versions
 
 _RAYS = [K.vp, K.vp, K.f32, K.vp, K.vp]  # origins, dirs, tmin, tmax, boxes
 K10 = K.register(K.Kernel(
     "stream_trace", "stream_trace",
-    _RAYS + [K.vp, K.vp, K.i32, K.i32, K.i32, K.i32, K.vp, K.vp, K.vp, K.vp, K.vp],
+    _RAYS + [K.vp, K.vp, K.i32, K.i32, K.i32, K.i32, K.i32, K.vp, K.vp, K.vp, K.vp, K.vp, K.vp],
     source="capsaicin_tpu_torch/csrc/stream_trace.cu",
     replaces="capsaicin_tpu/ops/stream.py:220",
 ))
@@ -175,64 +206,106 @@ def stream_count_plain(sbvh: StreamBVH, origins, dirs, tmin: float, tmax) -> tor
     return counts
 
 
+def _ray_box(o, inv, om, box, tmin, reach):
+    """K10's padded slab test of each ray against its warp's popped block
+    (csrc/stream_trace.cu:ray_box), operation for operation: o, inv [A,32,3],
+    om (the largest |origin| coordinate) and reach [A,32], box [A,8] ->
+    [A,32] bool."""
+    lo, hi = box[:, None, 0:3], box[:, None, 4:7]
+    m = torch.maximum(lo.abs().amax(-1), hi.abs().amax(-1))  # [A,1]
+    pad = (BOX_PAD.to(o.device) * (m + om))[..., None]
+    t0 = ((lo - pad) - o) * inv
+    t1 = ((hi + pad) - o) * inv
+    tn = torch.minimum(t0, t1).amax(-1)
+    tf = torch.maximum(t0, t1).amin(-1)
+    return (tn <= tf) & (tf >= tmin) & (tn <= reach)
+
+
 def _stream_chunk(sbvh: StreamBVH, o, d, tmin, tm, any_hit: bool, state, work):
-    """Cull and stream the sub-packets of one chunk, updating `state`
-    (t_best, u, v, prim, each [C,128]) and `work` (blocks streamed,
-    triangle tests, each [C]) in place; returns the candidate count [C]."""
-    t_best, bu, bv, prim = state
-    streamed, tests = work
-    live = tm >= tmin
+    """Cull the sub-packets of one chunk and stream each of their warps,
+    updating `state` (t_best, u, v, prim, each [C,128]) and `work` (blocks
+    each warp popped [C,4]; box tests and triangle tests [C]) in place;
+    returns the candidate count [C]."""
+    streamed, box_tests, tests = work
+    c = o.shape[0]
     tn, hit = _cull(_bounds(o, d, tmin, tm), sbvh.boxes)
     # (tn, block id) order: the ids ascend along a row, and the sort is
     # stable; -0.0 becomes +0.0 so every sort takes it as equal to 0
     key = torch.where(hit, tn, float("inf")) + 0.0
     key, order = torch.sort(key, dim=1, stable=True)
     count = hit.sum(1)
+    # warp w of sub-packet s is row 4 s + w
+    nw = c * WARPS
+    sp = torch.arange(nw, device=o.device) // WARPS
+    wo, wd = o.reshape(nw, WARP, 3), d.reshape(nw, WARP, 3)
+    winv = _safe_inv(wd)
+    wom = wo.abs().amax(-1)
+    wtm = tm.reshape(nw, WARP)
+    wlive = wtm >= tmin
+    t_best, bu, bv, prim = (x.view(nw, WARP) for x in state)
+    w_streamed = torch.zeros(nw, dtype=torch.int64, device=o.device)
+    w_box = torch.zeros_like(w_streamed)
+    w_tests = torch.zeros_like(w_streamed)
     tri_id = sbvh.tris.view(torch.int32)[:, 3]
     slot = torch.arange(sbvh.block_tris, device=o.device)
-    act = torch.arange(o.shape[0], device=o.device)
+    act = torch.arange(nw, device=o.device)
     for k in range(int(count.max()) if count.numel() else 0):
+        # the warp's cap: the largest reach of its rays (a dead any-hit ray
+        # has prim 0, so prim < 0 only on live ones)
         if any_hit:
-            cap = torch.where(live[act] & (prim[act] < 0), tm[act], -BIG).amax(1)
+            cap = torch.where(prim[act] < 0, wtm[act], -BIG).amax(1)
         else:
-            cap = torch.where(live[act], torch.minimum(t_best[act], tm[act]), -BIG).amax(1)
-        act = act[(k < count[act]) & (key[act, k] <= cap)]
+            cap = torch.where(wlive[act], t_best[act], -BIG).amax(1)
+        act = act[(k < count[sp[act]]) & (key[sp[act], k] <= cap)]
         if not act.numel():
             break
-        slots = order[act, k, None] * sbvh.block_tris + slot  # [A, block_tris]
-        tri = sbvh.tris[slots][:, None]  # [A, 1, block_tris, 12]
+        w_streamed[act] += 1
+        blk = order[sp[act], k]
+        lanes = prim[act] < 0 if any_hit else wlive[act]  # the rays still searching
+        w_box[act] += lanes.sum(1)
+        reach = wtm[act] if any_hit else t_best[act]
+        go = lanes & _ray_box(wo[act], winv[act], wom[act], sbvh.boxes[blk], tmin, reach)
+        tested = go.any(1)
+        rows, blk, go = act[tested], blk[tested], go[tested]
+        if not rows.numel():
+            continue
+        slots = blk[:, None] * sbvh.block_tris + slot  # [R, block_tris]
+        tri = sbvh.tris[slots][:, None]  # [R, 1, block_tris, 12]
         tid = tri_id[slots][:, None]
-        # the tests the function needs: the block's triangles (not its
-        # padding) against the live rays, for any-hit those without a hit
-        lanes = prim[act] < 0 if any_hit else live[act]
-        tests[act] += lanes.sum(1) * (tid[:, 0] >= 0).sum(1)
-        best = t_best[act]
-        tt, uu, vv, ok = _mt_single(o[act, :, None], d[act, :, None], tri[..., 0:3],
+        real = tid >= 0  # padding is at the end of a block
+        best = t_best[rows]
+        tt, uu, vv, ok = _mt_single(wo[rows][:, :, None], wd[rows][:, :, None], tri[..., 0:3],
                                     tri[..., 4:7], tri[..., 8:11], tmin, best[..., None])
-        ok &= tid >= 0
+        ok &= real & go[..., None]
         if any_hit:
-            ok &= (prim[act] < 0)[..., None]
             j = ok.to(torch.uint8).argmax(2, keepdim=True)  # the first hit in slot order
             found = ok.any(2)
+            # a ray tests the slots up to its first hit
+            done = torch.where(found, j[..., 0] + 1, real.sum(2))
+            w_tests[rows] += torch.where(go, done, 0).sum(1)
         else:
             tt = torch.where(ok, tt, float("inf"))
             j = tt.argmin(2, keepdim=True)  # the first of the nearest, as slot order keeps
             found = tt.gather(2, j)[..., 0] < best
+            w_tests[rows] += go.sum(1) * real[:, 0].sum(1)
         pick = lambda x: x.gather(2, j)[..., 0]  # noqa: E731
-        t_best[act] = torch.where(found, pick(tt), best)
-        bu[act] = torch.where(found, pick(uu), bu[act])
-        bv[act] = torch.where(found, pick(vv), bv[act])
-        prim[act] = torch.where(found, pick(tid.expand_as(tt)), prim[act])
-        streamed[act] += 1
+        t_best[rows] = torch.where(found, pick(tt), best)
+        bu[rows] = torch.where(found, pick(uu), bu[rows])
+        bv[rows] = torch.where(found, pick(vv), bv[rows])
+        prim[rows] = torch.where(found, pick(tid.expand_as(tt)), prim[rows])
+    streamed += w_streamed.view(c, WARPS)
+    box_tests += w_box.view(c, WARPS).sum(1)
+    tests += w_tests.view(c, WARPS).sum(1)
     return count
 
 
 def stream_trace_plain(sbvh: StreamBVH, origins, dirs, tmin: float, tmax, any_hit: bool):
     """The plain version of K10. Returns {"t","u","v","prim"} (closest) or
-    {"hit"} (any-hit), with "candidates" (the cull's count), "streamed"
-    (the blocks popped) and "tests" (the ray-triangle tests the popped
-    blocks need: their triangles against the live rays, for any-hit those
-    not yet hit), int64 [ceil(N/128)] each."""
+    {"hit"} (any-hit), with K10's work: "candidates" (the cull's count)
+    [ceil(N/128)], "streamed" (the blocks each warp popped) [ceil(N/128), 4],
+    "box_tests" (a ray still searching against a popped block's box) and
+    "tests" (a ray against a real triangle of a popped block whose box it
+    passed; for any-hit up to its first hit) [ceil(N/128)], all int64."""
     n = origins.shape[0]
     o, d, tmin, tm = _sub_packets(origins, dirs, tmin, tmax)
     p = o.shape[0]
@@ -241,16 +314,19 @@ def stream_trace_plain(sbvh: StreamBVH, origins, dirs, tmin: float, tmax, any_hi
     bu = torch.zeros_like(tm)
     bv = torch.zeros_like(tm)
     prim = torch.full_like(tm, -1, dtype=torch.int32)
-    if any_hit:  # a dead ray counts as decided, so its sub-packet can retire
+    if any_hit:  # a dead ray counts as decided, so its warp can retire
         prim[~live] = 0
     candidates = torch.zeros(p, dtype=torch.int64, device=o.device)
-    streamed = torch.zeros_like(candidates)
+    streamed = torch.zeros((p, WARPS), dtype=torch.int64, device=o.device)
+    box_tests = torch.zeros_like(candidates)
     tests = torch.zeros_like(candidates)
     for c in _chunks(p, sbvh.n_blocks):  # slices: the chunk's state is a view
         candidates[c] = _stream_chunk(sbvh, o[c], d[c], tmin, tm[c], any_hit,
-                                      (t_best[c], bu[c], bv[c], prim[c]), (streamed[c], tests[c]))
+                                      (t_best[c], bu[c], bv[c], prim[c]),
+                                      (streamed[c], box_tests[c], tests[c]))
     prim = prim.reshape(-1)[:n]
-    work = {"candidates": candidates, "streamed": streamed, "tests": tests}
+    work = {"candidates": candidates, "streamed": streamed, "box_tests": box_tests,
+            "tests": tests}
     if any_hit:
         return {"hit": (prim >= 0) & live.reshape(-1)[:n], **work}
     t = torch.where(prim < 0, MISS_T, t_best.reshape(-1)[:n])
@@ -270,21 +346,37 @@ def _check(sbvh: StreamBVH, origins, dirs, tmax):
                            ("tmax", tmax, (n,)), ("boxes", sbvh.boxes, (sbvh.n_blocks, 8)),
                            ("tris", sbvh.tris, (sbvh.n_blocks * sbvh.block_tris, 12))):
         K.check_cuda(x, name, torch.float32, shape, dev, align=16 if name in ("boxes", "tris") else 1)
-    if sbvh.n_blocks < 2 or sbvh.n_blocks & (sbvh.n_blocks - 1):
-        raise ValueError(f"n_blocks {sbvh.n_blocks} is not a power of two >= 2")
+    if sbvh.n_blocks < 1:
+        raise ValueError(f"n_blocks {sbvh.n_blocks} < 1")
     if not 1 <= sbvh.block_tris <= MAX_BLOCK_TRIS:
         raise ValueError(f"block_tris {sbvh.block_tris} outside 1..{MAX_BLOCK_TRIS}")
-    need = shared_bytes(sbvh)
-    if need > SHARED_BYTES:
-        raise ValueError(f"stream_trace: {sbvh.n_blocks} blocks of {sbvh.block_tris} triangles "
-                         f"need {need} bytes of shared memory a sub-packet, above the "
-                         f"{SHARED_BYTES} one block can hold")
 
 
-def shared_bytes(sbvh: StreamBVH) -> int:
-    """K10's dynamic shared memory: the candidate list (8 bytes a block,
-    rounded to 16) and two staged blocks of triangle slots."""
-    return -(-sbvh.n_blocks * 8 // 16) * 16 + 2 * sbvh.block_tris * 48
+def launch_plan(n_blocks: int, block_tris: int, n_rays: int, resident: int) -> dict:
+    """K10's launch, from host ints only (no sync in a frame): "grid" (the
+    resident blocks, at most one a sub-packet, fewer where the scratch
+    would pass SCRATCH_BUDGET), "shared_bytes" (fixed: the tile, the
+    reduction, the counters) and "scratch_bytes" (two lists of n_blocks
+    8-byte keys a block of the grid, and the 8-byte sub-packet counter)."""
+    if n_blocks < 1 or not 1 <= block_tris <= MAX_BLOCK_TRIS or resident < 1:
+        raise ValueError(f"no K10 launch for {n_blocks} blocks of {block_tris} triangles on "
+                         f"{resident} resident blocks")
+    per_block = 2 * n_blocks * 8
+    grid = max(1, min(resident, -(-n_rays // LANE), SCRATCH_BUDGET // per_block))
+    return {"grid": grid, "shared_bytes": SHARED_BYTES, "scratch_bytes": grid * per_block + 8}
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_info(device_index: int, any_hit: bool) -> dict:
+    """K10's build on a card, from cudaFuncGetAttributes and the occupancy
+    API: registers a thread, static shared bytes, spilled bytes a thread,
+    resident blocks of 128 threads an SM, and the SMs."""
+    out = (ctypes.c_int * 5)()
+    err = K.call("stream_trace_info", [K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
+                 int(any_hit), out, device_index)
+    if err != 0:
+        raise RuntimeError(f"stream_trace_info: CUDA error {err}")
+    return dict(zip(("registers", "shared_bytes", "local_bytes", "ctas_per_sm", "sms"), out))
 
 
 def count_candidates(sbvh: StreamBVH, origins, dirs, tmin: float, tmax) -> torch.Tensor:
@@ -318,18 +410,21 @@ def stream_trace(sbvh: StreamBVH, origins, dirs, tmin: float, tmax, any_hit: boo
     _check(sbvh, origins, dirs, tmax)
     if order is not None:
         K.check_cuda(order, "order", torch.int32, (-(-n // LANE),), dev)
+    info = kernel_info(dev.index or 0, any_hit)
+    plan = launch_plan(sbvh.n_blocks, sbvh.block_tris, n, info["ctas_per_sm"] * info["sms"])
+    scratch = torch.empty(plan["scratch_bytes"] // 8, dtype=torch.int64, device=dev)
     args = (K.ptr(origins), K.ptr(dirs), float(tmin), K.ptr(tmax), K.ptr(sbvh.boxes),
             K.ptr(sbvh.tris), None if order is None else K.ptr(order), n, sbvh.n_blocks,
-            sbvh.block_tris)
+            sbvh.block_tris, int(any_hit), plan["grid"], K.ptr(scratch))
     if any_hit:
         hit = torch.empty(n, dtype=torch.bool, device=dev)
-        K10.launch(dev, *args, 1, None, None, None, None, K.ptr(hit))
+        K10.launch(dev, *args, None, None, None, None, K.ptr(hit))
         return hit
     t = torch.empty(n, dtype=torch.float32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
-    K10.launch(dev, *args, 0, K.ptr(t), K.ptr(u), K.ptr(v), K.ptr(prim), None)
+    K10.launch(dev, *args, K.ptr(t), K.ptr(u), K.ptr(v), K.ptr(prim), None)
     return t, u, v, prim
 
 

@@ -4,14 +4,16 @@ GPU: builds the CUDA kernels from csrc/, holds each (and its bf16-storage
 instance) against its plain PyTorch version at the shapes of the 1080p
 frame, holds the BVH walk (K7), the brute-force intersector (K8) and the
 stream traversal (K10, with its count pass K11) to their plain versions on
-the full colonnade's 1080p rays and K10 to K7 on all of them, runs the
+the full colonnade's 1080p rays and K10 to K7 on all of them (K10 also at
+blocks of 8: 32,768 blocks), prints K10's registers, shared memory and
+resident warps, runs the
 walk microbenchmark (K9), renders the Cornell box at 1920x1080 with
 default options through the session API and checks that the frame went
 through every kernel, renders the other configurations of bench.py the
 same way (the colonnade through the BVH and through the stream at blocks
 of 32, 64 and 128), then holds small CUDA renders against the CPU path. Every kernel's time stands beside its bound: the larger of
 its bytes over 3.35 TB/s and its operations over 67 TFLOP/s (the H100
-SXM's HBM rate and float32 rate).
+SXM's HBM rate and float32 rate); a time under 95% of it fails the run.
 
     python3 chip_smoke.py
 
@@ -26,6 +28,9 @@ import json
 import subprocess
 import sys
 import time
+
+# K10's A/B tool; its frame-ray recorder and event timer serve here too
+from capsaicin_tpu_torch.tools.stream_times import cuda_ms, frame_rays
 
 W, H = 1920, 1080
 FRAMES = 8
@@ -48,6 +53,7 @@ OPS_MICROSTEP = 25  # K9: a box test and the step's arithmetic
 # bounds: 12 sub, 24 mul, 46 min/max, 4 compares (csrc/stream_count.cu)
 OPS_IBOX = 86
 STREAM_BLOCKS = (32, 64, 128)  # K10's block sizes timed (bench.py:129-139)
+STREAM_LARGE = 8  # the full colonnade at blocks of 8: 32,768 blocks
 SUBSAMPLE = 65_536  # rays of the colonnade's sets the plain walk takes
 
 # Per-frame launches of the flagship frame (gi1080, default options)
@@ -122,22 +128,6 @@ PATH_OF = {"eaw_pair": "gi1080_eaw_fused1", "bvh_trace": "colonnade",
 def check(cond, what: str):
     if not cond:
         raise AssertionError(what)
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over `iters` calls, after one warm-up call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(ops: float, nbytes: float) -> dict:
@@ -483,35 +473,6 @@ def compare_stencils(session, report):
               f"{cuda_ms(lambda: chain(o16), 10):.4f} ms")
 
 
-def frame_rays(session, frames=3):
-    """The rays of the last of `frames` frames of a session's scene from a
-    reset: [(kind, origins, dirs, tmin, tmax [N])] for the primary,
-    direct-shadow, bounce and NEE traces, in that order."""
-    import torch
-
-    from capsaicin_tpu_torch.render import pipeline
-
-    closest, any_hit = session._trace
-    calls = []
-
-    def record(kind, fn):
-        def traced(o, d, tmin, tmax):
-            tm = torch.as_tensor(tmax, dtype=torch.float32, device=o.device).expand(o.shape[0])
-            calls.append((kind, o.contiguous(), d.contiguous(), float(tmin), tm.contiguous()))
-            return fn(o, d, tmin, tmax)
-        return traced
-
-    state = pipeline.init_state(session.width, session.height, session.camera, session.options)
-    for _ in range(frames):
-        calls.clear()
-        _, state = pipeline.render_frame(
-            session.shade, record("closest", closest), record("any", any_hit), session.camera,
-            state, session.settings, session.noise, session.width, session.height,
-            session.options)
-    torch.cuda.synchronize()
-    return list(calls)
-
-
 def compare_bvh(report):
     """K7 on the full colonnade's 1080p rays (primary, direct shadow,
     bounce and NEE of the third frame): against its plain version and K8
@@ -627,52 +588,132 @@ def compare_bvh(report):
     return calls, tris, acc
 
 
+def stream_subsample(n, device):
+    """Ray indices of a subsample of whole sub-packets, evenly spaced, about
+    SUBSAMPLE rays: each pops what it pops in the full run. Returns
+    (sub-packet indices, ray indices)."""
+    import torch
+
+    from capsaicin_tpu_torch.ops import stream
+
+    p = -(-n // stream.LANE)
+    sp = torch.arange(0, p, max(1, p * stream.LANE // SUBSAMPLE), device=device)
+    sp = sp[:SUBSAMPLE // stream.LANE]
+    idx = (sp[:, None] * stream.LANE + torch.arange(stream.LANE, device=device)).reshape(-1)
+    return sp, idx[idx < n]
+
+
+def hold_stream(what, sb, o, d, tmin, tmax, any_hit):
+    """K10 on all rays and on a subsample of whole sub-packets, held to its
+    plain version there. Returns (the full result, the plain result with
+    its work counts, the subsample's sub-packets and rays, the plain
+    version's ms, the max abs error)."""
+    import torch
+
+    from capsaicin_tpu_torch.ops import stream
+
+    full = stream.stream_trace(sb, o, d, tmin, tmax, any_hit)
+    sp, idx = stream_subsample(o.shape[0], o.device)
+    so, sd, stm = o[idx], d[idx], tmax[idx]
+    sub = stream.stream_trace(sb, so, sd, tmin, stm, any_hit)
+    plain, plain_ms = timed(lambda: stream.stream_trace_plain(sb, so, sd, tmin, stm, any_hit))
+    err = 0.0
+    if any_hit:
+        check(torch.equal(sub, full[idx]), f"{what}: the subsample's hits differ from the full run's")
+        hold_any(f"{what} vs its plain version", sub, plain["hit"])
+        check(torch.equal(sub, plain["hit"]), f"{what}: hits differ from the plain version's")
+    else:
+        check(all(torch.equal(a, b[idx]) for a, b in zip(sub, full)),
+              f"{what}: the subsample's hits differ from the full run's")
+        err = hold_hits(f"{what} vs its plain version", sub,
+                        tuple(plain[k] for k in ("t", "u", "v", "prim")))
+        check(torch.equal(sub[3], plain["prim"]), f"{what}: prim differs from the plain version's")
+    return full, plain, sp, idx, plain_ms, err
+
+
+def stream_bound(sb, plain, n, tmin, tmax, any_hit):
+    """K10's bound on n rays from its plain version's work on a subsample
+    of whole sub-packets, scaled to all of them: the cull of each
+    sub-packet with a live ray (86 a box), a slab test (22) for each box
+    test, a Moller-Trumbore test (45) for each triangle test; the bytes of
+    each input read once (the rays, 28 B; the box table and the triangle
+    slots) and the results written once (16 B, any-hit 1 B)."""
+    import torch
+
+    from capsaicin_tpu_torch.ops import stream
+
+    p = -(-n // stream.LANE)
+    live_sp = int(torch.nn.functional.pad(tmax >= tmin, (0, p * stream.LANE - n))
+                  .reshape(p, stream.LANE).any(1).sum())
+    box_tests = float(plain["box_tests"].double().mean())
+    tests = float(plain["tests"].double().mean())
+    cull_ops = live_sp * sb.n_blocks * OPS_IBOX
+    ops = cull_ops + p * (box_tests * OPS_BOX + tests * OPS_TRI)
+    nbytes = n * (28 + (1 if any_hit else 16)) + (sb.boxes.numel() + sb.tris.numel()) * 4
+    work = dict(sub_packets=p, live_sub_packets=live_sp,
+                candidates_per_sub_packet=float(plain["candidates"].double().mean()),
+                pops_per_warp=float(plain["streamed"].double().mean()),
+                max_pops_per_warp=int(plain["streamed"].max()),
+                box_tests_per_sub_packet=box_tests, tests_per_sub_packet=tests,
+                cull_ops=cull_ops, ops=ops, bytes=nbytes)
+    return work, bound(ops, nbytes)
+
+
 def compare_stream(report, calls, tris, tree7):
     """K10 and K11 on the full colonnade's 1080p rays (the four sets of
     compare_bvh): K10 against its plain version on a subsample of whole
-    sub-packets and against K7 on all rays, K11 against its plain version
-    on all rays, the bounce set balanced against unbalanced; K10's times at
-    blocks of 32, 64 and 128 beside K7's and K11's."""
+    sub-packets and against K7 on all rays, at blocks of 32 and at blocks of
+    8 (32,768 blocks, beyond the 16,384 of the first design's shared-memory
+    list); K11 against its plain version on all rays; the bounce set
+    balanced against unbalanced, and the session's sorted traces against
+    the unsorted ones; K10's times at blocks of 8, 32, 64 and 128 beside
+    K7's and K11's, and its bound from the plain version's work on the
+    pixel-order sets and on the frame's own sorted sets."""
     import torch
 
     from capsaicin_tpu_torch.ops import bvh, stream
     from capsaicin_tpu_torch.render.traversal import make_stream_bounce_fns
 
-    builds = {b: stream.build_stream_bvh(tris, b) for b in STREAM_BLOCKS}
+    builds = {b: stream.build_stream_bvh(tris, b) for b in (STREAM_LARGE,) + STREAM_BLOCKS}
     acc = builds[stream.BLOCK_TRIS]
+    resident = {}
+    for any_hit in (False, True):
+        info = stream.kernel_info(0, any_hit)
+        resident[any_hit] = info["ctas_per_sm"] * info["sms"]
+        check(info["shared_bytes"] <= stream.SHARED_BYTES <= stream.SHARED_CEILING,
+              f"K10 static shared memory {info['shared_bytes']} B above its plan")
+        print(f"K10 {'any-hit' if any_hit else 'closest'} build: {info['registers']} registers a "
+              f"thread, {info['shared_bytes']} B shared memory a block (ceiling "
+              f"{stream.SHARED_CEILING} B, whatever n_blocks), {info['local_bytes']} B spilled; "
+              f"{info['ctas_per_sm']} blocks of 128 threads = {4 * info['ctas_per_sm']} warps "
+              f"resident an SM on {info['sms']} SMs")
+        report.setdefault("k10_build", {})["any_hit" if any_hit else "closest"] = info
     for b, sb in builds.items():
+        plan = stream.launch_plan(sb.n_blocks, b, W * H, resident[False])
         print(f"colonnade stream blocks of {b}: {sb.n_blocks} blocks "
-              f"({int((sb.boxes[:, 3] > 0).sum())} not empty), K10 shared memory "
-              f"{stream.shared_bytes(sb)} B a sub-packet")
+              f"({int((sb.boxes[:, 3] > 0).sum())} not empty); K10 at 1080p: grid "
+              f"{plan['grid']}, shared {plan['shared_bytes']} B a block, scratch "
+              f"{plan['scratch_bytes'] / 2**20:.1f} MiB")
     names = ("primary", "shadow", "bounce", "nee")
     per_set, errs = {}, []
     for name, (kind, o, d, tmin, tmax) in zip(names, calls):
         any_hit = kind == "any"
         n = o.shape[0]
-        p = -(-n // stream.LANE)
         what = f"K10 {kind} ({name})"
-        full = stream.stream_trace(acc, o, d, tmin, tmax, any_hit)
         k7 = bvh.bvh_trace(tree7, o, d, tmin, tmax, any_hit)
-        if any_hit:
-            hold_any(f"{what} vs K7, all rays", full, k7)
-        else:
-            hold_hits(f"{what} vs K7, all rays", full, k7, hits_only=True)
-        # a subsample of whole sub-packets, so each pops what it pops in the full run
-        sp = torch.arange(0, p, max(1, p * stream.LANE // SUBSAMPLE), device=o.device)
-        sp = sp[:SUBSAMPLE // stream.LANE]
-        idx = (sp[:, None] * stream.LANE + torch.arange(stream.LANE, device=o.device)).reshape(-1)
-        idx = idx[idx < n]
-        so, sd, stm = o[idx], d[idx], tmax[idx]
-        sub = stream.stream_trace(acc, so, sd, tmin, stm, any_hit)
-        plain, plain_ms = timed(lambda: stream.stream_trace_plain(acc, so, sd, tmin, stm, any_hit))
-        if any_hit:
-            check(torch.equal(sub, full[idx]), f"{what}: the subsample's hits differ from the full run's")
-            hold_any(f"{what} vs its plain version", sub, plain["hit"])
-        else:
-            check(all(torch.equal(a, b[idx]) for a, b in zip(sub, full)),
-                  f"{what}: the subsample's hits differ from the full run's")
-            errs.append(hold_hits(f"{what} vs its plain version", sub,
-                                  tuple(plain[k] for k in ("t", "u", "v", "prim"))))
+        full, plain, sp, idx, plain_ms, err = hold_stream(what, acc, o, d, tmin, tmax, any_hit)
+        errs.append(err)
+        large = {}
+        for b, sb in builds.items():
+            if b in (acc.block_tris, STREAM_LARGE):
+                got = full if sb is acc else hold_stream(
+                    f"{what}, blocks of {b} ({sb.n_blocks} blocks)", sb, o, d, tmin, tmax,
+                    any_hit)[0]
+                if any_hit:
+                    hold_any(f"{what}, blocks of {b}, vs K7, all rays", got, k7)
+                else:
+                    errs.append(hold_hits(f"{what}, blocks of {b}, vs K7, all rays", got, k7,
+                                          hits_only=True))
         counts = stream.count_candidates(acc, o, d, tmin, tmax)
         counts_plain, count_plain_ms = timed(lambda: stream.stream_count_plain(acc, o, d, tmin, tmax))
         check(torch.equal(counts, counts_plain), f"K11 ({name}): counts differ from the plain version's")
@@ -682,37 +723,16 @@ def compare_stream(report, calls, tris, tree7):
                  for b, sb in builds.items()}
         k7_ms = cuda_ms(lambda: bvh.bvh_trace(tree7, o, d, tmin, tmax, any_hit), 3)
         k11_ms = cuda_ms(lambda: stream.count_candidates(acc, o, d, tmin, tmax), 5)
-        # the plain version's work on the subsample, scaled to all
-        # sub-packets: the cull of each sub-packet with a live ray, and the
-        # triangle tests the popped blocks need (their triangles against
-        # the live rays, for any-hit those not yet hit)
-        cand = float(plain["candidates"].double().mean())
-        streamed = float(plain["streamed"].double().mean())
-        tests = float(plain["tests"].double().mean())
-        bt = acc.block_tris
-        live_sp = int(torch.nn.functional.pad(tmax >= tmin, (0, p * stream.LANE - n))
-                      .reshape(p, stream.LANE).any(1).sum())
-        cull_ops = live_sp * acc.n_blocks * OPS_IBOX
-        ops = cull_ops + p * tests * OPS_TRI
-        # each input read once: the rays (28 B), the box table and the
-        # triangle slots; the results out (16 B, any-hit 1 B)
-        table = (acc.boxes.numel() + acc.tris.numel()) * 4
-        nbytes = n * (28 + (1 if any_hit else 16)) + table
-        # the bytes if every sub-packet read the box table and its streamed
-        # blocks from device memory (the table stays in L2)
-        streamed_bytes = n * (28 + (1 if any_hit else 16)) + p * (acc.n_blocks * 32
-                                                                   + streamed * bt * 48)
-        entry = dict(rays=n, live=int((tmax >= tmin).sum()), sub_packets=p,
-                     live_sub_packets=live_sp, candidates_per_sub_packet=cand,
-                     streamed_per_sub_packet=streamed, tests_per_sub_packet=tests,
-                     slot_tests_per_sub_packet=streamed * stream.LANE * bt,
-                     max_candidates=int(counts.max()), max_streamed=int(plain["streamed"].max()),
-                     ms_by_block=times, k7_ms=k7_ms, plain_ms=plain_ms, plain_rays=len(idx),
-                     streamed_bytes=streamed_bytes,
-                     streamed_bytes_ms=streamed_bytes / HBM_BYTES_PER_S * 1e3,
-                     count_ms=k11_ms, count_plain_ms=count_plain_ms,
-                     count_bound=bound(cull_ops, n * 28 + p * 4 + acc.boxes.numel() * 4),
-                     **bound(ops, nbytes))
+        work, b32 = stream_bound(acc, plain, n, tmin, tmax, any_hit)
+        check(times[acc.block_tris] >= 0.95 * b32["bound_ms"],
+              f"{what}: {times[acc.block_tris]} ms below 95% of its bound {b32['bound_ms']} ms")
+        entry = dict(rays=n, live=int((tmax >= tmin).sum()), **work,
+                     max_candidates=int(counts.max()), ms_by_block=times, k7_ms=k7_ms,
+                     plain_ms=plain_ms, plain_rays=len(idx), count_ms=k11_ms,
+                     count_plain_ms=count_plain_ms,
+                     count_bound=bound(work["cull_ops"], n * 28 + work["sub_packets"] * 4
+                                       + acc.boxes.numel() * 4),
+                     **b32)
         if name == "bounce":  # the session balances this set
             bal = stream.stream_closest(acc, o, d, tmin, tmax, balance=True)
             check(all(torch.equal(bal[k], x) for k, x in zip(("t", "u", "v", "prim"), full)),
@@ -722,7 +742,7 @@ def compare_stream(report, calls, tris, tree7):
         if name in ("bounce", "nee"):
             # the session's trace of this set: sorted by the 96-cell
             # direction key, the closest-hit one balanced; and K10 alone on
-            # the sorted rays, balanced or not
+            # the sorted rays, balanced or not, with its bound there
             sorted_fn = make_stream_bounce_fns(acc)[1 if any_hit else 0]
             got = sorted_fn(o, d, tmin, tmax)
             got = got if any_hit else tuple(got[k] for k in ("t", "u", "v", "prim"))
@@ -734,23 +754,35 @@ def compare_stream(report, calls, tris, tree7):
             sorted_counts = stream.count_candidates(acc, oo, od, tmin, otm)
             entry["sorted_candidates_per_sub_packet"] = float(sorted_counts.double().mean())
             entry["sorted_max_candidates"] = int(sorted_counts.max())
+            _, splain, _, _, _, _ = hold_stream(f"{what}, sorted", acc, oo, od, tmin, otm, any_hit)
+            swork, sbound = stream_bound(acc, splain, n, tmin, otm, any_hit)
+            entry["sorted"] = dict(swork, **sbound)
             entry["sorted_ms"] = cuda_ms(
                 lambda: stream.stream_trace(acc, oo, od, tmin, otm, any_hit), 3)
+            frame_ms = entry["sorted_ms"]
             if not any_hit:
-                entry["sorted_balanced_ms"] = cuda_ms(
-                    lambda: stream.stream_closest(acc, oo, od, tmin, otm, balance=True), 3)
+                sorted_order = stream.balance_order(sorted_counts)
+                entry["sorted_balanced_ms"] = frame_ms = cuda_ms(
+                    lambda: stream.stream_trace(acc, oo, od, tmin, otm, False, sorted_order), 3)
+            check(frame_ms >= 0.95 * sbound["bound_ms"],
+                  f"{what}, sorted: {frame_ms} ms below 95% of its bound {sbound['bound_ms']} ms")
         per_set[name] = entry
-        print(f"{what}: {n} rays, {p} sub-packets ({live_sp} with a live ray); {cand:.1f} "
-              f"candidate blocks, {streamed:.1f} streamed and {tests:.0f} triangle tests needed "
-              f"(of {streamed * stream.LANE * bt:.0f} slot tests) per sub-packet (plain, "
-              f"{len(idx)} rays); K10 ms by block "
-              f"{times} (K7 {k7_ms:.4f}); plain {plain_ms:.1f} ms; bound {entry['bound_ms']:.4f} ms "
-              f"({entry['bound_by']}); K11 {k11_ms:.4f} ms (plain {count_plain_ms:.1f}, bound "
-              f"{entry['count_bound']['bound_ms']:.4f})"
-              + f"; max candidates {entry['max_candidates']}, max streamed {entry['max_streamed']}"
+        print(f"{what}: {n} rays, {work['sub_packets']} sub-packets ({work['live_sub_packets']} with "
+              f"a live ray); {work['candidates_per_sub_packet']:.1f} candidate blocks, "
+              f"{work['pops_per_warp']:.1f} pops a warp (max {work['max_pops_per_warp']}), "
+              f"{work['box_tests_per_sub_packet']:.0f} box tests and "
+              f"{work['tests_per_sub_packet']:.0f} triangle tests per sub-packet (plain, "
+              f"{len(idx)} rays); K10 ms by block {times} (K7 {k7_ms:.4f}); plain {plain_ms:.1f} ms; "
+              f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}); K11 {k11_ms:.4f} ms (plain "
+              f"{count_plain_ms:.1f}, bound {entry['count_bound']['bound_ms']:.4f}); max "
+              f"candidates {entry['max_candidates']}"
               + (f"; balanced {entry['balanced_ms']:.4f} ms" if "balanced_ms" in entry else "")
               + (f"; sorted (dir_grid 4): {entry['sorted_candidates_per_sub_packet']:.1f} "
-                 f"candidates (max {entry['sorted_max_candidates']}), K10 {entry['sorted_ms']:.4f} ms"
+                 f"candidates (max {entry['sorted_max_candidates']}), "
+                 f"{entry['sorted']['pops_per_warp']:.1f} pops a warp, "
+                 f"{entry['sorted']['box_tests_per_sub_packet']:.0f} box and "
+                 f"{entry['sorted']['tests_per_sub_packet']:.0f} triangle tests per sub-packet, "
+                 f"bound {entry['sorted']['bound_ms']:.4f} ms; K10 {entry['sorted_ms']:.4f} ms"
                  + (f", balanced {entry['sorted_balanced_ms']:.4f} ms"
                     if "sorted_balanced_ms" in entry else "")
                  + f"; the session's sort and trace {entry['session_trace_ms']:.4f} ms"
@@ -760,7 +792,7 @@ def compare_stream(report, calls, tris, tree7):
         max_abs_err=max(errs), ms=sum(e["ms_by_block"][acc.block_tris] for e in per_set.values())
         / len(per_set), plain_ms=mean("plain_ms"), plain_rays=SUBSAMPLE, bound_ms=mean("bound_ms"),
         bound_by=per_set["bounce"]["bound_by"], library_ms=None, block_tris=acc.block_tris,
-        per_set=per_set)
+        build=report.pop("k10_build"), per_set=per_set)
     report["stream_count"] = dict(
         max_abs_err=0.0, ms=mean("count_ms"), plain_ms=mean("count_plain_ms"),
         bound_ms=sum(e["count_bound"]["bound_ms"] for e in per_set.values()) / len(per_set),
@@ -943,6 +975,9 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms")
     for k in kernels:
         check(all(key in k for key in keys), f"{k['name']}: missing {set(keys) - set(k)}")
+        # a time under the bound means the count of work is wrong
+        check(k["ms"] >= 0.95 * k["bound_ms"],
+              f"{k['name']}: {k['ms']} ms below 95% of its bound {k['bound_ms']} ms")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

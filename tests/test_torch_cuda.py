@@ -344,12 +344,36 @@ def test_stream_kernels(dev, block_tris):
         assert all(torch.equal(bal[k], x) for k, x in zip(("t", "u", "v", "prim"), got))
 
 
-def test_stream_trace_raises_beyond_shared_memory(dev):
-    """A candidate list one block cannot hold raises with the numbers; it
-    never falls back to the plain version."""
-    n_blocks = 1 << 15  # 256 KB of keys
-    sbvh = stream.StreamBVH(torch.zeros((n_blocks, 8), device=dev),
-                            torch.zeros((n_blocks, 12), device=dev), n_blocks, 1)
-    o = torch.zeros((128, 3), device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        stream.stream_trace(sbvh, o, o + 1.0, 0.0, 1e6, False)
+@pytest.mark.parametrize("target_tris,n_blocks", [(20_000, 1 << 15), (80_000, 1 << 17)])
+def test_stream_trace_beyond_shared_memory(dev, target_tris, n_blocks):
+    """K10 on more blocks than one thread block's shared memory could list
+    (the first design's limit was 16,384): reduced colonnades at blocks of
+    one triangle, 2^15 and 2^17 blocks, against its plain version on 1024
+    rays (fans from points in the hall and scattered rays, some dead),
+    closest and any-hit, balanced or not."""
+    scene = build_scene(colonnade(target_tris=target_tris))
+    tris = np.stack([scene.tri_v0, scene.tri_v1, scene.tri_v2], 1).astype(np.float32)
+    sbvh = stream.build_stream_bvh(tris, 1, device=dev)
+    assert sbvh.n_blocks == n_blocks
+    rng = np.random.default_rng(9)
+    o, d = [], []
+    for _ in range(6):
+        c = rng.uniform([-15.0, 1.0, -7.0], [15.0, 6.0, 7.0])
+        o.append(c + rng.normal(scale=0.05, size=(128, 3)))
+        d.append(rng.normal(size=3) + rng.normal(scale=0.15, size=(128, 3)))
+    o.append(rng.uniform([-15.0, 1.0, -7.0], [15.0, 6.0, 7.0], (256, 3)))
+    d.append(rng.normal(size=(256, 3)))
+    o = torch.from_numpy(np.concatenate(o).astype(np.float32)).to(dev)
+    d = np.concatenate(d)
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)).to(dev)
+    tmax = torch.full((o.shape[0],), 1e6, device=dev)
+    tmax[::11] = -1.0
+    t, u, v, prim = stream.stream_trace(sbvh, o, d, 0.0, tmax, False)
+    plain = stream.stream_trace_plain(sbvh, o, d, 0.0, tmax, False)
+    assert torch.equal(prim, plain["prim"]) and int((prim >= 0).sum()) > 500
+    for a, k in zip((t, u, v), ("t", "u", "v")):
+        torch.testing.assert_close(a, plain[k], rtol=0, atol=1e-5)
+    bal = stream.stream_closest(sbvh, o, d, 0.0, tmax, balance=True)
+    assert all(torch.equal(bal[k], x) for k, x in zip(("t", "u", "v", "prim"), (t, u, v, prim)))
+    hit = stream.stream_trace(sbvh, o, d, 1e-4, tmax, True)
+    assert torch.equal(hit, stream.stream_trace_plain(sbvh, o, d, 1e-4, tmax, True)["hit"])

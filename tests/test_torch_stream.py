@@ -154,6 +154,32 @@ def test_block64_closest_matches_jax(tris, rays):
     _hold_closest(got, _jax_closest(tris, rays, 64))
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_plain_work_counts(tris, rays, jax_results, any_hit):
+    """K10's work as the plain version counts it: a warp pops at most the
+    candidates; box tests at most its live lanes x its pops; triangle tests
+    at most the box tests x block_tris, and fewer than every live lane
+    against every slot of its warp's pops (the per-ray box test skips
+    blocks); the results those of the JAX package."""
+    o, d, tmax = _torch(*rays)
+    sbvh = stream.build_stream_bvh(tris)
+    tmin = 1e-4 if any_hit else 0.0
+    out = stream.stream_trace_plain(sbvh, o, d, tmin, tmax, any_hit)
+    assert out["streamed"].shape == (N_RAYS // stream.LANE, stream.WARPS)
+    assert bool((out["streamed"] <= out["candidates"][:, None]).all())
+    live = (tmax >= tmin).reshape(-1, stream.WARPS, stream.WARP).sum(2)
+    lane_pops = (live * out["streamed"]).sum(1)
+    slots = lane_pops * sbvh.block_tris
+    assert bool((out["box_tests"] <= lane_pops).all())
+    assert bool((out["tests"] <= out["box_tests"] * sbvh.block_tris).all())
+    assert bool((out["tests"] <= slots).all()) and int(out["tests"].sum()) > 0
+    assert int(out["tests"].sum()) < int(slots.sum())
+    if any_hit:
+        np.testing.assert_array_equal(out["hit"].numpy(), jax_results["any"])
+    else:
+        _hold_closest(out, jax_results["closest"])
+
+
 def _brute_rays(rng, n, lo, hi, spread):
     o = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
     d = rng.normal(size=(n, 3)).astype(np.float32)
@@ -188,10 +214,10 @@ def test_plain_stream_matches_brute_force(scene):
                   min_hits=50)
     np.testing.assert_array_equal(stream.stream_any(sbvh, o, d, 1e-4, tmax).numpy(),
                                   brute.brute_trace_plain(packed.tris, o, d, 1e-4, tmax, True))
-    for any_hit in (False, True):  # the tests needed: at most the popped slots x 128 rays
+    for any_hit in (False, True):  # the tests done: at most the popped slots x 32 rays a warp
         work = stream.stream_trace_plain(sbvh, o, d, 0.0, tmax, any_hit)
-        assert bool((work["streamed"] <= work["candidates"]).all())
-        slots = work["streamed"] * stream.LANE * sbvh.block_tris
+        assert bool((work["streamed"] <= work["candidates"][:, None]).all())
+        slots = work["streamed"].sum(1) * stream.WARP * sbvh.block_tris
         assert bool((work["tests"] <= slots).all()) and int(work["tests"].sum()) > 0
     assert torch.equal(work["candidates"].int(), stream.count_candidates(sbvh, o, d, 0.0, tmax))
 
@@ -230,8 +256,8 @@ def test_all_dead_sub_packet(tris, rays):
     sbvh = stream.build_stream_bvh(tris)
     for any_hit in (False, True):
         out = stream.stream_trace_plain(sbvh, o, d, 1e-4, tmax, any_hit)
-        assert int(out["candidates"][1]) == 0 and int(out["streamed"][1]) == 0
-        assert int(out["tests"][1]) == 0
+        assert int(out["candidates"][1]) == 0 and int(out["streamed"][1].sum()) == 0
+        assert int(out["box_tests"][1]) == 0 and int(out["tests"][1]) == 0
         assert bool((out["candidates"][[0, 2, 3, 4]] > 0).all())
         if any_hit:
             assert not out["hit"][128:256].any()
