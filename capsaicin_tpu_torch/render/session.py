@@ -70,12 +70,13 @@ class RenderSession:
         scene_dev = convert.scene_from_numpy(scene, self.device)
         mode = resolve_mode(self.traversal_mode, scene_dev.tri_v0.shape[0])
         self.accel = build_accel(scene_dev, mode, self.stream_block_tris)
-        self._trace = make_traversal(mode, self.accel)
+        self._trace = make_traversal(mode, self.accel, lambda: (self.width, self.height))
         # while options.sort_bounce_rays holds, the BVH and stream modes
-        # trace bounce rays sorted, as the JAX package does for its packet
-        # and stream kernels; the stream mode sorts the direct shadow rays
-        # too (by octant) and balances the bounce closest-hit trace
-        closest, any_hit = self._trace
+        # trace bounce rays sorted (so not in pixel order), as the JAX
+        # package does for its packet and stream kernels; the stream mode
+        # sorts the direct shadow rays too (by octant) and balances the
+        # bounce closest-hit trace
+        closest, any_hit = make_traversal(mode, self.accel)
         self._sorted_trace = self._sorted_shadow = None
         if mode == "bvh":
             self._sorted_trace = (with_ray_sorting(closest), with_ray_sorting_any(any_hit))

@@ -10,9 +10,33 @@ capsaicin_tpu/render/settings.py:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import numpy as np
+
+
+def _env_eaw_fused() -> str:
+    """The default of RenderOptions.eaw_fused: CAPSAICIN_EAW_FUSED, read
+    once, when the options object is built, as the JAX package reads it."""
+    v = os.environ.get("CAPSAICIN_EAW_FUSED", "0")
+    if v in ("", "0"):
+        return "0"
+    if v in ("1", "13"):
+        return v
+    raise ValueError(f"CAPSAICIN_EAW_FUSED={v!r}: expected 0/1/13")
+
+
+def _env_eaw_bf16() -> bool:
+    """The default of RenderOptions.eaw_bf16: CAPSAICIN_EAW_BF16, read as
+    _env_eaw_fused reads its variable."""
+    v = os.environ.get("CAPSAICIN_EAW_BF16", "0")
+    if v in ("", "0"):
+        return False
+    if v == "1":
+        return True
+    raise ValueError(f"CAPSAICIN_EAW_BF16={v!r}: expected 0/1")
+
 
 # Output modes (OutputType, gui_system.h:11-17)
 OUTPUT_COMBINED = 0
@@ -25,8 +49,8 @@ OUTPUT_VARIANCE = 3
 class RenderOptions:
     """Variant switches; defaults match RaytracingOptions{false, true, true}
     (raytracing_system.h:22-27) and the SettingsComponent bools. The EAW
-    storage variants default to "0"/False here and are not read from the
-    environment."""
+    variants' defaults come from CAPSAICIN_EAW_FUSED and CAPSAICIN_EAW_BF16,
+    read when the object is built (unset: "0" and False)."""
 
     lowres_indirect: bool = False
     use_variance: bool = True
@@ -41,8 +65,8 @@ class RenderOptions:
     sort_bounce_rays: bool = True
     use_material_kd: bool = False
     history_dtype: str = "float32"
-    eaw_fused: str = "0"
-    eaw_bf16: bool = False
+    eaw_fused: str = dataclasses.field(default_factory=_env_eaw_fused)
+    eaw_bf16: bool = dataclasses.field(default_factory=_env_eaw_bf16)
 
     def __post_init__(self):
         if self.eaw_fused not in ("0", "1", "13"):

@@ -61,14 +61,24 @@ _BACKENDS = {
 }
 
 
-def make_traversal(mode: str, accel):
+def make_traversal(mode: str, accel, pixels=None):
+    """The backend's (closest_fn, any_fn) on `accel`. With `pixels`, a
+    function giving the frame's (W, H), the BVH backend takes a set of W*H
+    rays as pixels in row order (K7 gives each warp an 8x4 tile of them;
+    no result changes)."""
     closest_of, any_of = _BACKENDS[mode]
 
+    def tiles(origins):
+        if mode != "bvh" or pixels is None:
+            return {}
+        w, h = pixels()
+        return {"pixel_width": w} if origins.shape[0] == w * h else {}
+
     def closest(origins, dirs, tmin, tmax):
-        return closest_of(accel, origins, dirs, tmin, tmax)
+        return closest_of(accel, origins, dirs, tmin, tmax, **tiles(origins))
 
     def any_hit(origins, dirs, tmin, tmax):
-        return any_of(accel, origins, dirs, tmin, tmax)
+        return any_of(accel, origins, dirs, tmin, tmax, **tiles(origins))
 
     return closest, any_hit
 

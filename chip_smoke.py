@@ -4,9 +4,10 @@ GPU: builds the CUDA kernels from csrc/, holds each (and its bf16-storage
 instance) against its plain PyTorch version at the shapes of the 1080p
 frame, holds the BVH walk (K7), the brute-force intersector (K8) and the
 stream traversal (K10, with its count pass K11) to their plain versions on
-the full colonnade's 1080p rays and K10 to K7 on all of them (K10 also at
-blocks of 8: 32,768 blocks), prints K10's registers, shared memory and
-resident warps, runs the
+the full colonnade's 1080p rays (K7 bit-equal to its walk's plain
+versions, its bound counted from the ordered walk) and K10 to K7 on all of
+them (K10 also at blocks of 8: 32,768 blocks), prints K7's and K10's
+registers, local and shared memory and resident warps, runs the
 walk microbenchmark (K9), renders the Cornell box at 1920x1080 with
 default options through the session API and checks that the frame went
 through every kernel, renders the other configurations of bench.py the
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -188,7 +190,9 @@ def make_session(width, height, device, options=None, scene="cornell", atlas_u32
     from capsaicin_tpu_torch.scene.procedural import make_camera
     from capsaicin_tpu_torch.scene.scene import quantize_atlas
 
-    session = RenderSession(width, height, options=RenderOptions(**(options or {})),
+    # the EAW variants are set, not taken from the environment's defaults
+    options = {"eaw_fused": "0", "eaw_bf16": False, **(options or {})}
+    session = RenderSession(width, height, options=RenderOptions(**options),
                             device=device, traversal=traversal,
                             stream_block_tris=stream_block_tris)
     session.set_camera(make_camera("colonnade" if scene.startswith("colonnade") else "cornell",
@@ -483,7 +487,6 @@ def compare_bvh(report):
     import torch
 
     from capsaicin_tpu_torch.ops import brute, bvh, lookup, static, traverse
-    from capsaicin_tpu_torch.render.traversal import with_ray_sorting, with_ray_sorting_any
 
     session = make_session(W, H, "cuda", scene="colonnade", traversal="bvh")
     acc = session.accel
@@ -496,8 +499,13 @@ def compare_bvh(report):
             trees[leaf] = bvh.build_bvh(tris, leaf)
     for leaf, tree in sorted(trees.items()):
         print(f"colonnade BVH leaf {leaf}: {tree.n_leaves} leaves, depth {tree.depth}, "
-              f"nodes {tree.nodes.numel() * 4 / 2**20:.2f} MiB, "
+              f"wide records {tree.wide.numel() * 4 / 2**20:.2f} MiB, "
               f"triangles {tree.tris.numel() * 4 / 2**20:.2f} MiB")
+    builds = {any_hit: bvh.kernel_info(torch.cuda.current_device(), any_hit, acc.depth)
+              for any_hit in (False, True)}
+    for any_hit, info in builds.items():
+        print(f"K7 {'any-hit' if any_hit else 'closest-hit'} build at depth {acc.depth}: {info}")
+        check(info["local_bytes"] == 0, f"K7 uses {info['local_bytes']} B of local memory")
     scene8 = static.pack_triangles(tris)
     names = ("primary", "shadow", "bounce", "nee")
     calls = frame_rays(session)
@@ -512,19 +520,36 @@ def compare_bvh(report):
         idx = torch.arange(0, n, n // SUBSAMPLE, device=o.device)[:SUBSAMPLE]
         so, sd, stm = o[idx], d[idx], tmax[idx]
         sub = bvh.bvh_trace(acc, so, sd, tmin, stm, any_hit)
-        plain, plain_ms = timed(lambda: traverse.traverse(acc.host, so, sd, tmin, stm, any_hit,
-                                                          counts=True))
+        # K7's walk on binary records (its plain version: bit-equal, and the
+        # bound's count), its own four-wide walk and the stackless one
+        plain, plain_ms = timed(lambda: traverse.ordered_walk(acc.host, so, sd, tmin, stm, any_hit,
+                                                              counts=True))
+        wide = traverse.wide_walk(acc.wide, acc.host, so, sd, tmin, stm, any_hit, counts=True)
+        check(all(torch.equal(wide[k], plain[k]) for k in ("t", "u", "v", "prim")),
+              f"K7 {kind} ({name}): the four-wide walk's plain version differs from the binary")
+        stackless = traverse.traverse(acc.host, so, sd, tmin, stm, any_hit, counts=True)
         k8 = brute.brute_trace(scene8, so, sd, tmin, stm, any_hit)
         what = f"K7 {kind} ({name})"
         if any_hit:
             check(torch.equal(sub, full[idx]), f"{what}: the subsample's hits differ from the full run's")
-            hold_any(f"{what} vs its plain version", sub, plain["prim"] >= 0)
+            n_diff = int((sub != (plain["prim"] >= 0)).sum())
+            print(f"{what} vs its plain version (the ordered walk): {len(idx)} rays, "
+                  f"{n_diff} mismatches")
+            check(n_diff == 0, f"{what}: differs from the ordered walk")
+            hold_any(f"{what} vs the stackless walk", sub, stackless["prim"] >= 0)
             hold_any(f"{what} vs K8", sub, k8)
         else:
             check(all(torch.equal(a, b[idx]) for a, b in zip(sub, full)),
                   f"{what}: the subsample's hits differ from the full run's")
             plain4 = tuple(plain[k] for k in ("t", "u", "v", "prim"))
-            errs.append(hold_hits(f"{what} vs its plain version", sub, plain4))
+            n_diff = int((sub[3] != plain4[3]).sum())
+            same = all(torch.equal(a, b) for a, b in zip(sub, plain4))
+            print(f"{what} vs its plain version (the ordered walk): {len(idx)} rays, "
+                  f"{n_diff} prim mismatches, t/u/v/prim bit-equal: {same}")
+            check(same, f"{what}: differs from the ordered walk")
+            errs.append(0.0)  # bit-equal
+            hold_hits(f"{what} vs the stackless walk", sub,
+                      tuple(stackless[k] for k in ("t", "u", "v", "prim")))
             hold_hits(f"{what} vs K8", sub, k8, hits_only=True)
         for leaf, tree in trees.items():
             if leaf != acc.leaf_size:
@@ -533,17 +558,32 @@ def compare_bvh(report):
                                                     full, other)
         times = {leaf: cuda_ms(lambda tree=tree: bvh.bvh_trace(tree, o, d, tmin, tmax, any_hit), 5)
                  for leaf, tree in sorted(trees.items())}
-        boxes = float(plain["boxes"].double().mean())
-        tests = float(plain["tris"].double().mean())
-        # the work of the plain walk on the subsample, scaled to all rays;
-        # bytes: rays in (28 B), results out (16 B, any-hit 1 B), the tree once
+        # as the frame calls it: a pixel-order set goes to K7 as 8x4 tiles
+        pixel_fn = session._trace[1 if any_hit else 0]
+        tiled = pixel_fn(o, d, tmin, tmax)
+        tiled = tiled if any_hit else tuple(tiled[k] for k in ("t", "u", "v", "prim"))
+        check(torch.equal(tiled, full) if any_hit else all(map(torch.equal, tiled, full)),
+              f"{what}: the session's call (8x4 tiles) gives other hits")
+        session_ms = cuda_ms(lambda: pixel_fn(o, d, tmin, tmax), 5)
+        # the bound: the box and triangle tests of the ordered walk (K7's
+        # binary walk: a yardstick that does not move with the layout) on the
+        # subsample, scaled to all rays; bytes: rays in (28 B), results out
+        # (16 B, any-hit 1 B), the binary tree's pair records (64 B a leaf)
+        # and the triangle slots once
+        boxes, tests, records = (float(plain[k].double().mean())
+                                 for k in ("boxes", "tris", "records"))
         ops = (boxes * OPS_BOX + tests * OPS_TRI) * n
-        nbytes = n * (28 + (1 if any_hit else 16)) + (acc.nodes.numel() + acc.tris.numel()) * 4
+        nbytes = n * (28 + (1 if any_hit else 16)) + acc.n_leaves * 64 + acc.tris.numel() * 4
         entry = dict(rays=n, live=live, box_tests_per_ray=boxes, tri_tests_per_ray=tests,
-                     ms_by_leaf=times, plain_ms=plain_ms, plain_rays=len(idx), **bound(ops, nbytes))
+                     records_per_ray=records,
+                     wide_records_per_ray=float(wide["records"].double().mean()),
+                     wide_box_tests_per_ray=float(wide["boxes"].double().mean()),
+                     stackless_box_tests_per_ray=float(stackless["boxes"].double().mean()),
+                     stackless_tri_tests_per_ray=float(stackless["tris"].double().mean()),
+                     ms_by_leaf=times, session_ms=session_ms, plain_ms=plain_ms,
+                     plain_rays=len(idx), **bound(ops, nbytes))
         if name in ("bounce", "nee"):  # the session traces these sorted
-            closest, any_fn = session._trace
-            fn = with_ray_sorting_any(any_fn) if any_hit else with_ray_sorting(closest)
+            fn = session._sorted_trace[1 if any_hit else 0]
             got = fn(o, d, tmin, tmax)
             got = got if any_hit else tuple(got[k] for k in ("t", "u", "v", "prim"))
             check(torch.equal(got, full) if any_hit else all(map(torch.equal, got, full)),
@@ -553,18 +593,25 @@ def compare_bvh(report):
             entry["sorted_ms"] = cuda_ms(lambda: bvh.bvh_trace(acc, oo, od, tmin, otm, any_hit), 5)
             entry["sort_and_trace_ms"] = cuda_ms(lambda: fn(o, d, tmin, tmax), 5)
         per_set[name] = entry
-        print(f"{what}: {n} rays ({live} live); K7 ms by leaf size {times}; plain "
+        print(f"{what}: {n} rays ({live} live); K7 ms by leaf size {times}, as the session "
+              f"calls it (leaf 4, 8x4 tiles) {session_ms:.4f}; plain "
               f"{plain_ms:.1f} ms on {len(idx)} rays; {boxes:.1f} box and {tests:.1f} triangle "
-              f"tests per ray (plain walk); bound {entry['bound_ms']:.4f} ms "
-              f"({entry['bound_by']})" + (f"; sorted rays {entry['sorted_ms']:.4f} ms, sort and "
+              f"tests and {records:.1f} pair records per ray (the ordered walk; K7's four-wide "
+              f"walk: {entry['wide_box_tests_per_ray']:.1f} box tests and "
+              f"{entry['wide_records_per_ray']:.1f} records; the stackless "
+              f"walk: {entry['stackless_box_tests_per_ray']:.1f} box and "
+              f"{entry['stackless_tri_tests_per_ray']:.1f} triangle tests); bound "
+              f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})"
+              + (f"; sorted rays {entry['sorted_ms']:.4f} ms, sort and "
                                           f"trace {entry['sort_and_trace_ms']:.4f} ms"
                                           if "sorted_ms" in entry else ""))
     mean = lambda key: sum(e[key] for e in per_set.values()) / len(per_set)  # noqa: E731
     report["bvh_trace"] = dict(
-        max_abs_err=max(errs), ms=sum(e["ms_by_leaf"][acc.leaf_size] for e in per_set.values())
-        / len(per_set), plain_ms=mean("plain_ms"), plain_rays=SUBSAMPLE,
+        max_abs_err=max(errs), ms=mean("session_ms"), plain_ms=mean("plain_ms"),
+        plain_rays=SUBSAMPLE,
         bound_ms=mean("bound_ms"), bound_by=per_set["primary"]["bound_by"], library_ms=None,
-        leaf_size=acc.leaf_size, per_set=per_set)
+        leaf_size=acc.leaf_size, build=builds[False], build_any_hit=builds[True],
+        per_set=per_set)
 
     # K2 on the colonnade's primary hits: the table is read from device memory
     table = session.shade.table
@@ -891,6 +938,10 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"device: {kind} x{torch.cuda.device_count()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
+    # RenderOptions' EAW defaults come from these; every config here sets
+    # its own (make_session)
+    print("CAPSAICIN_EAW_FUSED=" + repr(os.environ.get("CAPSAICIN_EAW_FUSED")) +
+          " CAPSAICIN_EAW_BF16=" + repr(os.environ.get("CAPSAICIN_EAW_BF16")))
     print(smi)
 
     # 2. build

@@ -4,7 +4,9 @@ and mean abs err <= 1e-3: a float32 sum taken in another order can flip a
 bf16 rounding by an ulp), the launches of a default-options frame, and
 frames free of host syncs. The intersectors (K7 BVH walk, K8 brute force)
 are held to hit ids equal except at equal t (rtol 1e-4) or on triangle
-edges, t/u/v within 1e-5 where the ids agree; the walk benchmark (K9)
+edges, t/u/v within 1e-5 where the ids agree, and K7 also bit-equal to
+its own walk's plain version (the ordered walk), on a persistent grid's
+edges too; the walk benchmark (K9)
 exactly; the stream traversal (K10, K11), which pops blocks in the order
 of its plain version, to hit ids and counts equal and t/u/v within 1e-5.
 
@@ -242,11 +244,20 @@ def _hits_agree(got, want, bar=1e-3):
         torch.testing.assert_close(a[same], b[same], rtol=0, atol=1e-5)
 
 
+def _ordered_equal(got, host, o, d, tmin, tmax, any_hit):
+    """K7's result bit-equal to its walk's plain version (the ordered walk)."""
+    want = traverse.ordered_walk(host, o, d, tmin, tmax, any_hit)
+    if any_hit:
+        assert torch.equal(got, want["prim"] >= 0)
+    else:
+        assert all(torch.equal(a, want[k]) for a, k in zip(got, ("t", "u", "v", "prim")))
+
+
 @pytest.mark.parametrize("leaf_size", [4, 8, 32])
 def test_bvh_and_brute_kernels(dev, leaf_size):
-    """K7 against its plain version (the stackless walk) and K8, and K8
-    against its plain version (the chunked oracle), on a 49,774-triangle
-    colonnade."""
+    """K7 against its walk's plain version (the ordered walk: bit-equal),
+    the stackless walk and K8, and K8 against its plain version (the
+    chunked oracle), on a 49,774-triangle colonnade."""
     host = build_scene(colonnade(target_tris=50_000))
     tris = torch.from_numpy(np.stack([host.tri_v0, host.tri_v1, host.tri_v2], 1))
     accel = bvh.build_bvh(tris, leaf_size, device=dev)
@@ -255,6 +266,7 @@ def test_bvh_and_brute_kernels(dev, leaf_size):
     before = bvh.K7.launches
     k7 = bvh.bvh_trace(accel, o, d, 0.0, tmax, False)
     assert bvh.K7.launches == before + 1
+    _ordered_equal(k7, accel.host, o, d, 0.0, tmax, False)
     plain = traverse.bvh_closest(accel.host, o, d, 0.0, tmax)
     _hits_agree(k7, tuple(plain[k] for k in ("t", "u", "v", "prim")))
     k8 = brute.brute_trace(scene, o, d, 0.0, tmax, False)
@@ -267,9 +279,49 @@ def test_bvh_and_brute_kernels(dev, leaf_size):
     assert bool((k8[0][~hit] == 1e30).all()) and bool((k7[0][~hit] == tmax[~hit]).all())
     _hits_agree(k7, tuple(torch.where(hit, x, y) for x, y in zip(k8, (tmax, 0, 0, -1))))
     any7 = bvh.bvh_trace(accel, o, d, 1e-4, tmax, True)
+    _ordered_equal(any7, accel.host, o, d, 1e-4, tmax, True)
     assert torch.equal(any7, traverse.bvh_any(accel.host, o, d, 1e-4, tmax))
     assert torch.equal(any7, brute.brute_trace(scene, o, d, 1e-4, tmax, True))
     assert torch.equal(any7, brute.brute_trace_plain(scene.tris, o, d, 1e-4, tmax, True))
+
+
+@pytest.mark.parametrize("case", ["no_rays", "one_ray", "ragged", "all_dead", "two_leaves"])
+def test_bvh_kernel_persistent_grid_edges(dev, case):
+    """K7's persistent grid at its edges, held bit-equal to the ordered walk
+    and to the CPU path: 0 rays, 1 ray, a count that is not a multiple of
+    32 (nor of a block), every ray dead, and a tree of 2 leaves (a single
+    two-wide record, once an octant)."""
+    if case == "two_leaves":
+        tris = np.array([[[-1, -1, 3], [1, -1, 3], [0, 1, 3]], [[-1, -1, 5], [1, -1, 5], [0, 1, 5]],
+                         [[2, -1, 4], [4, -1, 4], [3, 1, 4]]], np.float32)
+        accel = bvh.build_bvh(tris, 2, device=dev)
+        assert accel.n_leaves == 2 and accel.wide.shape[0] == 8  # one record an octant
+    else:
+        host = build_scene(colonnade(target_tris=2000))
+        accel = bvh.build_bvh(np.stack([host.tri_v0, host.tri_v1, host.tri_v2], 1), device=dev)
+    n = {"no_rays": 0, "one_ray": 1, "ragged": 1000, "all_dead": 333, "two_leaves": 257}[case]
+    o, d, tmax = _hall_rays(dev, max(n, 1), 3)
+    o, d, tmax = o[:n], d[:n], tmax[:n]
+    if case == "two_leaves":  # from near the origin, towards the triangles
+        o = o * 0.05
+        ahead = torch.tensor([0.0, 0.0, 1.0], device=dev)
+        d = torch.nn.functional.normalize(0.3 * d + ahead, dim=1)
+    if case == "all_dead":
+        tmax = torch.full_like(tmax, -1.0)
+    for any_hit, tmin in ((False, 0.0), (True, 1e-4)):
+        before = bvh.K7.launches
+        got = bvh.bvh_trace(accel, o, d, tmin, tmax, any_hit)
+        assert bvh.K7.launches == before + 1
+        _ordered_equal(got, accel.host, o, d, tmin, tmax, any_hit)
+        cpu = bvh.bvh_trace(accel, o.cpu(), d.cpu(), tmin, tmax.cpu(), any_hit)
+        if any_hit:
+            assert torch.equal(got.cpu(), cpu)
+        elif n:
+            _hits_agree(tuple(x.cpu() for x in got), cpu)
+        if case == "two_leaves" and not any_hit:
+            assert int((got[3] >= 0).sum()) > n // 4
+    info = bvh.kernel_info(dev.index or 0, False, accel.depth)
+    assert info["local_bytes"] == 0 and info["warps_per_sm"] >= 8, info
 
 
 def test_hit_attributes_large_table(dev):

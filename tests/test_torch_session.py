@@ -84,3 +84,26 @@ def test_panel_variants_match_jax():
     want = JSession.panel_variants(type("S", (), {"options": JOptions(**base)})())
     got = _session(**base).panel_variants()
     assert [dataclasses.asdict(v) for v in got] == [dataclasses.asdict(v) for v in want]
+
+
+@pytest.mark.parametrize("bf16", [None, "0", "1", "x"])
+@pytest.mark.parametrize("fused", [None, "", "0", "1", "13", "x"])
+def test_eaw_defaults_from_the_environment_match_jax(monkeypatch, fused, bf16):
+    """RenderOptions() takes its EAW variants from CAPSAICIN_EAW_FUSED and
+    CAPSAICIN_EAW_BF16 as the JAX package does: equal defaults, or a
+    ValueError from both."""
+    for name, value in (("CAPSAICIN_EAW_FUSED", fused), ("CAPSAICIN_EAW_BF16", bf16)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    results = []
+    for options in (RenderOptions, JOptions):
+        try:
+            results.append(dataclasses.asdict(options()))
+        except ValueError as e:
+            results.append(("ValueError", str(e)))
+    assert results[0] == results[1]
+    if "x" not in (fused, bf16):
+        assert results[0]["eaw_fused"] == (fused or "0")
+        assert results[0]["eaw_bf16"] == (bf16 == "1")
