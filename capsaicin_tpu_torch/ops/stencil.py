@@ -8,9 +8,13 @@ Buffers are [H,W,C] with channels last: color4 (r, g, b, variance), geo
 (decoded normal xyz, depth), moments (m1, m2, history length), the
 gather's indirect (r, g, b). A tap is valid where it lies inside the image
 and its depth is at least 1e-5. The plain versions zero-pad the image, so
-a pad tap has depth 0 and the depth test alone excludes it; the kernels
-test the bounds explicitly. Both compute what the planar TPU layout
-computes.
+a pad tap has depth 0 and the depth test alone excludes it; K4 and K5 stage
+zeros for pixels outside the image and rely on that too, K3 and K6 test the
+bounds explicitly. All compute what the planar TPU layout computes.
+
+K4 and K5 take their launch plan from `stage_plan` and `gather_plan`: a
+block owns a tile of outputs (for K4, of one phase's sub-lattice of the
+stride) and stages the tile and its reach into shared memory.
 
 Storage is float32, or bfloat16 under `eaw_bf16` (the TPU package's bf16
 planar storage): arithmetic is float32 either way, and every kernel and
@@ -23,6 +27,9 @@ widened to float32 at the end.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -37,6 +44,12 @@ SPATIAL_VARIANCE_THRESHOLD = 8.0
 _EAW_KW = (1.0, 2.0 / 3.0, 1.0 / 6.0)  # eaw_blur.hlsl:76
 EAW_TILE = 16  # csrc/eaw_common.cuh
 PAIR_SMEM_LIMIT = 48 * 1024  # K6's shared memory per block, without an opt-in
+# K4's and K5's tiles: outputs a block (columns, rows), outputs a thread
+# (one above the other), the reach in taps (K4_* in csrc/eaw_stage.cu,
+# K5_* in csrc/spatial_gather.cu)
+STAGE_TILE, STAGE_ROWS, STAGE_REACH = (32, 16), 2, 2
+GATHER_TILE, GATHER_ROWS, GATHER_REACH = (32, 8), 2, 3
+TAP_SMEM_LIMIT = 48 * 1024  # K4's and K5's dynamic shared memory a block, without an opt-in
 
 K3 = K.register(K.Kernel(
     "eaw_disocclusion", "eaw_disocclusion",
@@ -46,13 +59,13 @@ K3 = K.register(K.Kernel(
 ))
 K4 = K.register(K.Kernel(
     "eaw_stage", "eaw_stage",
-    [K.vp, K.vp, K.vp, K.i32, K.i32, K.i32, K.i32, K.f32, K.f32, K.f32],
+    [K.vp, K.vp, K.vp, K.i32, K.i32, K.i32, K.i32, K.f32, K.f32, K.f32, K.i32, K.i32, K.i32],
     source="capsaicin_tpu_torch/csrc/eaw_stage.cu",
     replaces="capsaicin_tpu/ops/pallas_stencil.py:218",
 ))
 K5 = K.register(K.Kernel(
     "spatial_gather", "spatial_gather",
-    [K.vp, K.vp, K.vp, K.i32, K.i32, K.f32, K.f32, K.f32],
+    [K.vp, K.vp, K.vp, K.i32, K.i32, K.f32, K.f32, K.f32, K.i32, K.i32, K.i32],
     source="capsaicin_tpu_torch/csrc/spatial_gather.cu",
     replaces="capsaicin_tpu/ops/pallas_stencil.py:345",
 ))
@@ -190,6 +203,89 @@ def spatial_gather_plain(indirect, geo, s_normal, s_depth, s_luma):
     return torch.where((cd < 1e-5)[..., None], col, out).to(dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class TapPlan:
+    """The launch of K4 or K5 on an [h, w] image: `grid` blocks of `block`
+    threads, block b taking phase b % stride**2 (px, py) = (phase % stride,
+    phase // stride) and tile t = b // stride**2 of that phase's lattice
+    (the pixels px + stride * i, py + stride * j), whose lattice origin is
+    ((t % tiles_x) * tile[0], (t // tiles_x) * tile[1]); it stages the
+    `staged` lattice pixels from the origin minus `reach` and computes
+    `rows` outputs a thread, one above the other (thread (tx, ty): lattice
+    rows rows * ty + q). `shared_bytes` is its dynamic shared memory."""
+
+    grid: int
+    block: tuple
+    tiles_x: int
+    tiles_y: int
+    stride: int
+    tile: tuple
+    rows: int
+    reach: int
+    staged: tuple
+    shared_bytes: int
+
+
+def _tap_plan(h, w, stride, tile, rows, reach, bytes_staged):
+    lx, ly = -(-w // stride), -(-h // stride)  # phase (0, 0)'s lattice, the largest
+    tiles_x, tiles_y = -(-lx // tile[0]), -(-ly // tile[1])
+    staged = (tile[0] + 2 * reach, tile[1] + 2 * reach)
+    return TapPlan(grid=stride * stride * tiles_x * tiles_y if h > 0 and w > 0 else 0,
+                   block=(tile[0], tile[1] // rows), tiles_x=tiles_x, tiles_y=tiles_y,
+                   stride=stride, tile=tile, rows=rows, reach=reach, staged=staged,
+                   shared_bytes=staged[0] * staged[1] * bytes_staged)
+
+
+@functools.lru_cache(maxsize=64)
+def stage_plan(h: int, w: int, stride: int, dtype=torch.float32) -> TapPlan:
+    """K4's launch at `stride`: per staged pixel the float32 colour and geo
+    (16 B each) and the luminance (4 B), and under bf16 the raw pixels that
+    cp.async lands (8 B each). The same bytes at every stride."""
+    if stride < 1:
+        raise ValueError(f"eaw_stage: stride {stride} out of range")
+    return _tap_plan(h, w, stride, STAGE_TILE, STAGE_ROWS, STAGE_REACH,
+                     36 + (16 if dtype == torch.bfloat16 else 0))
+
+
+@functools.lru_cache(maxsize=64)
+def gather_plan(h: int, w: int, dtype=torch.float32) -> TapPlan:
+    """K5's launch (stride 1): per staged pixel the float32 indirect with
+    its luminance and geo (16 B each), and under bf16 the raw geo (8 B)."""
+    return _tap_plan(h, w, 1, GATHER_TILE, GATHER_ROWS, GATHER_REACH,
+                     32 + (8 if dtype == torch.bfloat16 else 0))
+
+
+def _checked(plan: TapPlan, name: str) -> TapPlan:
+    if plan.shared_bytes > TAP_SMEM_LIMIT:
+        raise ValueError(f"{name}: {plan.shared_bytes} B of shared memory a block, above "
+                         f"{TAP_SMEM_LIMIT}")
+    return plan
+
+
+def kernel_info(name: str, dtype=torch.float32, device_index: int = 0) -> dict:
+    """K4's ("eaw_stage", the instance with the variance, as the chain runs
+    it) or K5's ("spatial_gather") build on a card, from
+    cudaFuncGetAttributes and the occupancy API at its plan's shared
+    memory: registers a thread, local (spilled) bytes a thread, static and
+    dynamic shared bytes a block, resident blocks and warps an SM, SMs."""
+    out = (ctypes.c_int * 6)()
+    bf16 = int(dtype == torch.bfloat16)
+    if name == "eaw_stage":
+        plan = stage_plan(1, 1, 1, dtype)
+        err = K.call("eaw_stage_info", [K.i32, K.i32, K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
+                     bf16, 1, plan.shared_bytes, out, device_index)
+    else:
+        plan = gather_plan(1, 1, dtype)
+        err = K.call("spatial_gather_info", [K.i32, K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
+                     bf16, plan.shared_bytes, out, device_index)
+    if err != 0:
+        raise RuntimeError(f"{name}_info: CUDA error {err}")
+    info = dict(zip(("registers", "local_bytes", "shared_bytes", "dynamic_shared_bytes",
+                     "ctas_per_sm", "sms"), out))
+    info["warps_per_sm"] = info["ctas_per_sm"] * plan.block[0] * plan.block[1] // 32
+    return info
+
+
 def _storage(x) -> torch.dtype:
     if x.dtype not in K.STORAGE_SUFFIX:
         raise ValueError(f"stencil storage must be float32 or bfloat16, got {x.dtype}")
@@ -228,10 +324,11 @@ def eaw_stage(color4, geo, stride: int, use_variance: bool, s_normal, s_depth, s
     h, w = color4.shape[:2]
     _check_image(color4, "color4", 4, h, w, dev, dt)
     _check_image(geo, "geo", 4, h, w, dev, dt)
+    plan = _checked(stage_plan(h, w, int(stride), dt), "eaw_stage")
     out = torch.empty_like(color4)
     K4.launch(dev, K.ptr(color4), K.ptr(geo), K.ptr(out), h, w, int(stride),
               int(bool(use_variance)), float(s_normal), float(s_depth), float(s_luma),
-              storage=dt)
+              plan.grid, plan.tiles_x, plan.shared_bytes, storage=dt)
     return out
 
 
@@ -266,9 +363,11 @@ def spatial_gather(indirect, geo, s_normal, s_depth, s_luma):
     h, w = indirect.shape[:2]
     _check_image(indirect, "indirect", 3, h, w, dev, dt)
     _check_image(geo, "geo", 4, h, w, dev, dt)
+    plan = _checked(gather_plan(h, w, dt), "spatial_gather")
     out = torch.empty_like(indirect)
     K5.launch(dev, K.ptr(indirect), K.ptr(geo), K.ptr(out), h, w,
-              float(s_normal), float(s_depth), float(s_luma), storage=dt)
+              float(s_normal), float(s_depth), float(s_luma), plan.grid, plan.tiles_x,
+              plan.shared_bytes, storage=dt)
     return out
 
 

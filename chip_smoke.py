@@ -12,9 +12,13 @@ walk microbenchmark (K9), renders the Cornell box at 1920x1080 with
 default options through the session API and checks that the frame went
 through every kernel, renders the other configurations of bench.py the
 same way (the colonnade through the BVH and through the stream at blocks
-of 32, 64 and 128), then holds small CUDA renders against the CPU path. Every kernel's time stands beside its bound: the larger of
-its bytes over 3.35 TB/s and its operations over 67 TFLOP/s (the H100
-SXM's HBM rate and float32 rate); a time under 95% of it fails the run.
+of 32, 64 and 128), then holds small CUDA renders against the CPU path.
+Every kernel's time stands beside its bound: the largest of its bytes over
+3.35 TB/s, its float32 operations over 67 TFLOP/s (the H100 SXM's HBM rate
+and float32 rate) and its special-function operations (lg2, ex2, rcp,
+sqrt) over 16 a clock on each SM at the card's maximum SM clock; a time
+under 95% of it fails the run. It prints K4's, K5's, K7's and K10's
+registers, local and shared memory and resident warps.
 
     python3 chip_smoke.py
 
@@ -31,7 +35,8 @@ import subprocess
 import sys
 import time
 
-# K10's A/B tool; its frame-ray recorder and event timer serve here too
+# the A/B tools' stencil inputs, frame-ray recorder and event timer serve here too
+from capsaicin_tpu_torch.tools.stencil_times import stencil_inputs
 from capsaicin_tpu_torch.tools.stream_times import cuda_ms, frame_rays
 
 W, H = 1920, 1080
@@ -44,12 +49,25 @@ BF16_MAX, BF16_MEAN = 2e-2, 1e-3  # bf16 storage: one rounding may flip by an ul
 SKY = (0.7, 0.7, 0.85)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12
+MUFU_PER_SM_CLOCK = 16  # special-function results an SM a clock (Hopper)
 # Operations counted per unit of work, for the bounds: a float32 add, mul,
-# min, max or compare is one, and so is a division, sqrt, powf or expf.
+# min, max or compare is one, a fused multiply-add two (as the 67 TFLOP/s
+# count it), and a division, sqrt, powf or expf one where a row says no
+# more.
 OPS_BOX = 22  # slab test of one box: 6 sub, 6 mul, 6 min/max, 4 reductions
 OPS_TRI = 45  # Moller-Trumbore: crosses, dots, one division
 OPS_ATTR = 60  # K2: interpolation of P, N, UV and the normalisation
-OPS_TAP = 30  # a stencil tap: the normal/depth/luma weights and the sums
+# A stencil tap as the card can do it (csrc/eaw_tap.cuh): the normal
+# weight's exponent 7 (dot 5, clamp, scale), the depth term 3 and the luma
+# term 3 (a difference and a multiply-add each), hw 1 (K4, K6), then 2 a
+# channel summed (r, g, b; K3's two moments; the variance's w^2 3) and 1
+# for the weight sum; MUFU: lg2 and ex2 a tap, and a pixel's reciprocals
+# (inv_d, 1/tw; inv_l where it is per pixel) and sqrt (the variance's
+# sigma). K3 and K6 still call powf/expf: this is their function's work,
+# not their code's.
+TAP_OPS = {"eaw_disocclusion": 24, "eaw_stage": 24, "spatial_gather": 20, "eaw_pair": 24}
+MUFU_TAP = 2
+MUFU_PIXEL = {"eaw_disocclusion": 2, "eaw_stage": 4, "spatial_gather": 2, "eaw_pair": 8}
 OPS_MICROSTEP = 25  # K9: a box test and the step's arithmetic
 # K10/K11: interval slab test of one block box against a sub-packet's
 # bounds: 12 sub, 24 mul, 46 min/max, 4 compares (csrc/stream_count.cu)
@@ -132,13 +150,29 @@ def check(cond, what: str):
         raise AssertionError(what)
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the float32 rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+@functools.lru_cache(maxsize=None)
+def mufu_rate() -> tuple:
+    """(special-function operations a second, SMs, maximum SM clock in MHz):
+    SMs x 16 a clock x the card's maximum SM clock, as nvidia-smi reads it."""
+    import torch
+
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * MUFU_PER_SM_CLOCK * clock * 1e6, sms, clock
+
+
+def bound(ops: float, nbytes: float, mufu: float = 0.0) -> dict:
+    """The least time the card could take: the largest of the bytes over
+    the HBM rate, the float32 operations over the float32 rate and the
+    special-function operations over the MUFU rate (`bound_term` says
+    which)."""
+    t = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "float32": ops / FP32_OPS_PER_S * 1e3,
+         "mufu": mufu / mufu_rate()[0] * 1e3}
+    term = max(t, key=t.get)
+    return dict(bound_ms=t[term], bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term, library_ms=None)
 
 
 def timed(fn):
@@ -343,50 +377,22 @@ def compare_trace(session, report):
                                  **bound(n * n_tris * OPS_TRI, n * 44 + n_tris * 36))
 
 
-def frame_aux(session, options, frames=3):
-    """(FrameState, PassOutputs) of the last of `frames` frames rendered
-    from a reset with `options`, outside the session's own state."""
-    from capsaicin_tpu_torch.render import pipeline
-    from capsaicin_tpu_torch.render.traversal import make_traversal
-
-    closest, any_hit = make_traversal("static", session.accel)
-    state = pipeline.init_state(session.width, session.height, session.camera, options)
-    for _ in range(frames):
-        _, state, aux = pipeline.render_frame(
-            session.shade, closest, any_hit, session.camera, state, session.settings,
-            session.noise, session.width, session.height, options, collect_aux=True)
-    return state, aux
-
-
 def compare_stencils(session, report):
     """K3-K6, their bf16 instances and the whole chain in each grouping
     against their plain versions, on the gather's and the denoiser's
     inputs of a 1080p frame (the third after a reset) and on the gather's
-    input of a lowres_indirect frame ([540, 960])."""
+    input of a lowres_indirect frame ([540, 960]); K4's and K5's builds."""
     import dataclasses
 
     import torch
 
-    from capsaicin_tpu_torch.ops import mathops as m
     from capsaicin_tpu_torch.ops import stencil
-    from capsaicin_tpu_torch.render import passes
 
     opts = session.options
-    st, aux = frame_aux(session, opts)
-    color4 = st.color_history.float().contiguous()
-    moments4 = st.moments_history.float()
-    normal = m.oct_decode(st.prev_nd_oct)
-    geo = stencil.pack_geo(normal, st.prev_nd_depth)
-    mom = moments4[..., [0, 1, 3]].contiguous()
-    s = session.settings
-    sig = (s.eaw_normal_sigma, s.eaw_depth_sigma, s.eaw_luma_sigma)
-    gsig = (s.gather_normal_sigma, s.gather_depth_sigma, s.gather_luma_sigma)
-    indirect = aux.indirect_raw.contiguous()
-    lst, laux = frame_aux(session, dataclasses.replace(opts, lowres_indirect=True))
-    ox, oy = passes.interleave_offset(lst.frame_count - 1)
-    low_in = laux.indirect_raw.contiguous()
-    low_geo = stencil.pack_geo(m.oct_decode(laux.nd_oct[oy::2, ox::2]),
-                               laux.nd_depth[oy::2, ox::2])
+    x = stencil_inputs(session)
+    color4, geo, mom, moments4 = x["color4"], x["geo"], x["moments"], x["moments4"]
+    indirect, full_geo, low_in, low_geo = x["indirect"], x["full_geo"], x["low_in"], x["low_geo"]
+    s, sig, gsig = session.settings, x["sig"], x["gsig"]
     check(tuple(low_in.shape) == (H // 2, W // 2, 3), f"lowres gather input {low_in.shape}")
     strides = stencil.chain_strides(opts)
     pairs = ((1, 3), (5, 7))
@@ -404,12 +410,11 @@ def compare_stencils(session, report):
         return e_max, e_mean
 
     # each kernel, its plain version and the argument sets it is held on
-    full_geo = stencil.pack_geo(m.oct_decode(aux.nd_oct), aux.nd_depth)
     cases = {
         "eaw_disocclusion": (stencil.eaw_disocclusion, stencil.eaw_disocclusion_plain,
                              [(color4, geo, mom, *sig)]),
         "eaw_stage": (stencil.eaw_stage, stencil.eaw_stage_plain,
-                      [(color4, geo, k, True, *sig) for k in strides]),
+                      [(color4, geo, k, v, *sig) for v in (True, False) for k in strides]),
         "spatial_gather": (stencil.spatial_gather, stencil.spatial_gather_plain,
                            [(indirect, full_geo, *gsig), (low_in, low_geo, *gsig)]),
         "eaw_pair": (stencil.eaw_pair, stencil.eaw_pair_plain,
@@ -420,7 +425,14 @@ def compare_stencils(session, report):
             "spatial_gather": (49, 12 + 16 + 12), "eaw_pair": (50, 16 + 16 + 16)}
     for name, (kernel, plain, arg_sets) in cases.items():
         taps, bpp = work[name]
-        bounds = [bound(px * taps * OPS_TAP, px * bpp)
+        if name == "eaw_stage":  # timed and bounded with the variance, as the chain runs it
+            held, arg_sets = arg_sets, [a for a in arg_sets if a[3]]
+            for a in held[len(arg_sets):]:
+                close(kernel(*a), plain(*a), f"{name} stride {a[2]} without the variance")
+                b = tuple(v.bfloat16() if torch.is_tensor(v) else v for v in a)
+                close_bf16(kernel(*b), plain(*b), f"{name} bf16 stride {a[2]} without the variance")
+        bounds = [bound(px * taps * TAP_OPS[name], px * bpp,
+                        px * (taps * MUFU_TAP + MUFU_PIXEL[name]))
                   for px in (a[0].shape[0] * a[0].shape[1] for a in arg_sets)]
         bf_sets = [tuple(a.bfloat16() if torch.is_tensor(a) else a for a in args)
                    for args in arg_sets]
@@ -437,9 +449,20 @@ def compare_stencils(session, report):
                      bf16_mean_abs_err=max(e for _, e in bf_err),
                      bf16_ms=sum(bf_ms) / len(ms), bf16_plain_ms=sum(bf_plain) / len(ms),
                      bound_ms=sum(b["bound_ms"] for b in bounds) / len(ms),
-                     bound_by=bounds[0]["bound_by"], library_ms=None)
+                     bound_by=bounds[0]["bound_by"], bound_term=bounds[0]["bound_term"],
+                     library_ms=None)
         if len(ms) > 1:  # per case: strides, pairs, or the gather's full and half resolution
-            entry.update(case_ms=ms, case_plain_ms=plain_ms, case_bf16_ms=bf_ms)
+            entry.update(case_ms=ms, case_plain_ms=plain_ms, case_bf16_ms=bf_ms,
+                         case_bound_ms=[b["bound_ms"] for b in bounds])
+        if name in ("eaw_stage", "spatial_gather"):
+            entry["build"] = {}
+            for dt in (torch.float32, torch.bfloat16):
+                info = stencil.kernel_info(name, dt)
+                entry["build"][str(dt).split(".")[1]] = info
+                print(f"{name} {dt} build: {info['registers']} registers a thread, "
+                      f"{info['local_bytes']} B local, {info['dynamic_shared_bytes']} B dynamic "
+                      f"shared memory a block, {info['ctas_per_sm']} blocks = "
+                      f"{info['warps_per_sm']} warps resident an SM")
         report[name] = entry
         print(f"{name}: max abs err {err:.3g} (bf16 {entry['bf16_max_abs_err']:.3g}, mean "
               f"{entry['bf16_mean_abs_err']:.3g}); {entry['ms']:.4f} ms (plain "
@@ -457,7 +480,7 @@ def compare_stencils(session, report):
         return out.float()
 
     def chain(o):
-        return stencil.denoise_chain(color4, normal, st.prev_nd_depth, moments4, s, o)
+        return stencil.denoise_chain(color4, x["normal"], x["depth"], moments4, s, o)
 
     want = plain_chain()
     chain_plain = cuda_ms(plain_chain, 2)
@@ -936,6 +959,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    mufu, sms, clock = mufu_rate()
+    print(f"bounds: {HBM_BYTES_PER_S:.3g} B/s, {FP32_OPS_PER_S:.3g} float32 op/s, "
+          f"{mufu:.4g} MUFU op/s ({sms} SMs x {MUFU_PER_SM_CLOCK} x {clock:g} MHz)")
     print(f"device: {kind} x{torch.cuda.device_count()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     # RenderOptions' EAW defaults come from these; every config here sets

@@ -2,7 +2,9 @@
 float32 (rtol 1e-3, atol 1e-4) and in bf16 storage (max abs err <= 2e-2
 and mean abs err <= 1e-3: a float32 sum taken in another order can flip a
 bf16 rounding by an ulp), the launches of a default-options frame, and
-frames free of host syncs. The intersectors (K7 BVH walk, K8 brute force)
+frames free of host syncs. K4 and K5 also on images smaller than a tile
+and on the edge cases of their tap (s_normal = 0, equal luminances, an
+all-background image, depth 0 on the border). The intersectors (K7 BVH walk, K8 brute force)
 are held to hit ids equal except at equal t (rtol 1e-4) or on triangle
 edges, t/u/v within 1e-5 where the ids agree, and K7 also bit-equal to
 its own walk's plain version (the ordered walk), on a persistent grid's
@@ -93,8 +95,32 @@ def test_static_trace_and_hit_attributes(dev):
         torch.testing.assert_close(got[key], want[key], rtol=1e-6, atol=1e-6)
 
 
+# K4's and K5's edge cases: the inputs of _stencil_inputs changed as the CPU
+# model of their tap is tested (tests/test_torch_stencil_plan.py)
+TAP_CASES = ("random", "s_normal0", "equal_luma", "background", "border0")
+
+
+def _tap_case(color4, geo, sig, case):
+    """(color4, geo, sigmas) of an edge case; ndot <= 0 is in every case
+    (random normals)."""
+    color4, geo = color4.clone(), geo.clone()
+    if case == "equal_luma":
+        color4[..., :3] = 0.5
+        geo[..., :3] = geo[0, 0, :3].clone()
+    if case == "background":
+        geo[..., 3] = 0.0
+    if case == "border0":
+        geo[[0, -1], :, 3] = 0.0
+        geo[:, [0, -1], 3] = 0.0
+    return color4, geo, ((0.0,) + tuple(sig[1:]) if case == "s_normal0" else sig)
+
+
 @pytest.mark.parametrize("stride", [1, 3, 5, 7])
 def test_eaw_kernels(dev, stride):
+    """K3 and K4 at an odd size; K4 also on images smaller than one tile,
+    heights under 4 * stride, sizes not multiples of the stride and the
+    edge cases, with and without the variance, float32 and bf16, one launch
+    a call."""
     h, w = 67, 129
     color4, geo, mom = _stencil_inputs(dev, h, w, stride)
     s = default_settings()
@@ -107,11 +133,28 @@ def test_eaw_kernels(dev, stride):
             stencil.eaw_stage(color4, geo, stride, use_variance, *sig),
             stencil.eaw_stage_plain(color4, geo, stride, use_variance, *sig),
             rtol=1e-3, atol=1e-4)
+    for hh, ww in ((1, 1), (5, 3), (4 * stride - 1, 37), (2 * stride + 1, 3 * stride + 2),
+                   (19, 70)):
+        c0, g0, _ = _stencil_inputs(dev, hh, ww, hh * ww + stride)
+        for case in TAP_CASES:
+            c, g, cs = _tap_case(c0, g0, sig, case)
+            for use_variance in (True, False):
+                before = stencil.K4.launches
+                got = stencil.eaw_stage(c, g, stride, use_variance, *cs)
+                assert stencil.K4.launches == before + 1
+                torch.testing.assert_close(
+                    got, stencil.eaw_stage_plain(c, g, stride, use_variance, *cs),
+                    rtol=1e-3, atol=1e-4, msg=f"{hh}x{ww} {case} variance={use_variance}")
+            cb, gb = c.bfloat16(), g.bfloat16()
+            _bf16_close(stencil.eaw_stage(cb, gb, stride, True, *cs),
+                        stencil.eaw_stage_plain(cb, gb, stride, True, *cs))
 
 
 @pytest.mark.parametrize("hw", [(67, 129), (540, 960)], ids=["odd", "lowres1080"])
 def test_spatial_gather_kernel(dev, hw):
-    """K5 at odd sizes and at the half-resolution shape of a 1080p frame."""
+    """K5 at odd sizes and at the half-resolution shape of a 1080p frame;
+    with the odd size, also on images smaller than one tile and the edge
+    cases, one launch a call."""
     h, w = hw
     color4, geo, _ = _stencil_inputs(dev, h, w, h)
     indirect = color4[..., :3].contiguous()
@@ -124,6 +167,19 @@ def test_spatial_gather_kernel(dev, hw):
                                rtol=1e-3, atol=1e-4)
     ib, gb = indirect.bfloat16(), geo.bfloat16()
     _bf16_close(stencil.spatial_gather(ib, gb, *sig), stencil.spatial_gather_plain(ib, gb, *sig))
+    shapes = ((1, 1), (5, 3), (7, 40), (h, w)) if h < 100 else ()
+    for hh, ww in shapes:
+        c0, g0, _ = _stencil_inputs(dev, hh, ww, hh + ww)
+        for case in TAP_CASES:
+            c, g, cs = _tap_case(c0, g0, sig, case)
+            ind = c[..., :3].contiguous()
+            before = stencil.K5.launches
+            got = stencil.spatial_gather(ind, g, *cs)
+            assert stencil.K5.launches == before + 1
+            torch.testing.assert_close(got, stencil.spatial_gather_plain(ind, g, *cs),
+                                       rtol=1e-3, atol=1e-4, msg=f"{hh}x{ww} {case}")
+            _bf16_close(stencil.spatial_gather(ind.bfloat16(), g.bfloat16(), *cs),
+                        stencil.spatial_gather_plain(ind.bfloat16(), g.bfloat16(), *cs))
 
 
 @pytest.mark.parametrize("strides", [(1, 3), (5, 7)])

@@ -1,0 +1,260 @@
+"""K4's and K5's tap and launch plans, on the CPU.
+
+(a) A float32 model of the tap as the kernels compute it (csrc/eaw_tap.cuh:
+one log2 and one exp2 of a summed exponent, the reciprocals hoisted per
+pixel, hw as its log2, the variance summed with w_full^2, sums as fused
+multiply-adds in dy-then-dx order, staged pixels outside the image zero and
+an invalid tap's luminance +inf) against the plain versions
+`eaw_stage_plain` and `spatial_gather_plain`, rtol 1e-3 and atol 1e-4 as the
+kernels are held on the card, on random 32x48 inputs and on the edge cases
+of the reference: ndot <= 0, s_normal = 0, equal luminances, an
+all-background image, depth 0 on the border.
+
+(b) `stage_plan` and `gather_plan`: every output pixel is computed by
+exactly one thread, every tap of a pixel lies in its block's staged tile,
+and the shared memory stays under the limit, at [1080,1920], [540,960],
+[67,129], [5,3] and [1,1] and strides 1, 3, 5, 7; the tiles match the
+constants of the CUDA sources."""
+
+import math
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from capsaicin_tpu_torch.ops import mathops as m
+from capsaicin_tpu_torch.ops import stencil
+from capsaicin_tpu_torch.render.settings import default_settings
+
+H, W = 32, 48
+TOL = dict(rtol=1e-3, atol=1e-4)
+LOG2E = 1.4426950408889634
+INV_L_MIN = 1e-30
+CSRC = os.path.join(os.path.dirname(stencil.__file__), os.pardir, "csrc")
+
+
+def _fma(a, b, c):
+    """float32 a * b + c rounded once (the product of two float32 values is
+    exact in float64)."""
+    return (a.double() * b.double() + torch.as_tensor(c).double()).float()
+
+
+def _pad(x, reach, value=0.0):
+    return torch.nn.functional.pad(x.movedim(-1, 0), (reach, reach, reach, reach),
+                                   value=value).movedim(0, -1)
+
+
+def _tap_model(col, geo, lum, vlog, taps, reach_px, s_normal, inv_d, inv_l, hw_log2):
+    """The kernels' tap sum over `taps` [(dx, dy, offset_x, offset_y)] of
+    staged colour `col`, geo, luminance `lum` (None: no luma term) and
+    additive validity `vlog` (None: none); inv_d and inv_l per pixel.
+    Returns (acc rgb, acc of w^2 * col[..., 3], tw)."""
+    h, w = geo.shape[:2]
+    cp, gp = _pad(col, reach_px), _pad(geo, reach_px)
+    lp = None if lum is None else _pad(lum[..., None], reach_px, math.inf)[..., 0]
+    vp = None if vlog is None else _pad(vlog[..., None], reach_px, -math.inf)[..., 0]
+    nfloor = 1.0 if s_normal == 0 else 0.0
+    acc = torch.zeros(h, w, 3)
+    acc_v = torch.zeros(h, w)
+    tw = torch.zeros(h, w)
+    n, d = geo[..., :3], geo[..., 3]
+    cl = None if lum is None else lum
+    for dx, dy, ox, oy in taps:
+        sl = (slice(reach_px + oy, reach_px + oy + h), slice(reach_px + ox, reach_px + ox + w))
+        tc, tg = cp[sl], gp[sl]
+        ndot = _fma(n[..., 2], tg[..., 2], _fma(n[..., 1], tg[..., 1], n[..., 0] * tg[..., 0]))
+        e = _fma(torch.full_like(ndot, s_normal), torch.log2(ndot.clamp_min(nfloor)),
+                 hw_log2(dx, dy))
+        if dx or dy:
+            rinv = np.float32(1.0 / math.sqrt(dx * dx + dy * dy))
+            e = _fma(-(d - tg[..., 3]).abs(), inv_d * float(rinv), e)
+        if lp is not None:
+            e = _fma(-(cl - lp[sl]).abs(), inv_l, e)
+        if vp is not None:
+            e = e + vp[sl]
+        wt = torch.exp2(e)
+        acc = _fma(wt[..., None], tc[..., :3], acc)
+        tw = tw + wt
+        acc_v = _fma(wt * wt, tc[..., 3], acc_v)
+    return acc, acc_v, tw
+
+
+def stage_model(color4, geo, stride, use_variance, s_normal, s_depth, s_luma):
+    """K4 as csrc/eaw_stage.cu computes it, in float32 torch."""
+    rgb = color4[..., :3].clamp_max(stencil.FIREFLY_CLAMP)
+    cv = color4[..., 3]
+    valid = geo[..., 3] >= 1e-5
+    lum = torch.where(valid, m.luminance(rgb), math.inf)
+    s_d_base = geo[..., 3] * float(stride) * s_depth
+    inv_d = torch.where(s_d_base == 0, 0.0, LOG2E / torch.where(s_d_base == 0, 1.0, s_d_base))
+    s_l_eff = s_luma * torch.sqrt((cv + stencil.EPS).clamp_min(0.0))
+    inv_l = (LOG2E / s_l_eff).clamp_min(INV_L_MIN)
+    kw = [0.0, math.log2(2.0 / 3.0), math.log2(1.0 / 6.0)]
+    taps = [(dx, dy, dx * stride, dy * stride) for dy in range(-2, 3) for dx in range(-2, 3)]
+    col = torch.cat([rgb, cv[..., None]], -1)
+    acc, acc_v, tw = _tap_model(
+        col, geo, lum if use_variance else None,
+        None if use_variance else torch.where(valid, 0.0, -math.inf), taps, 2 * stride,
+        s_normal, inv_d, inv_l,
+        (lambda dx, dy: kw[abs(dx)] + kw[abs(dy)]) if use_variance else (lambda dx, dy: 0.0))
+    live = valid & ~(tw < stencil.EPS)
+    inv = 1.0 / tw.clamp_min(stencil.EPS)
+    out_v = acc_v * inv * inv if use_variance else torch.zeros_like(cv)
+    return torch.where(live[..., None], torch.cat([acc * inv[..., None], out_v[..., None]], -1),
+                       torch.cat([rgb, cv[..., None]], -1))
+
+
+def gather_model(indirect, geo, s_normal, s_depth, s_luma):
+    """K5 as csrc/spatial_gather.cu computes it, in float32 torch."""
+    valid = geo[..., 3] >= 1e-5
+    lum = torch.where(valid, m.luminance(indirect), math.inf)
+    s_d_base = geo[..., 3] * s_depth
+    inv_d = torch.where(s_d_base == 0, 0.0, LOG2E / torch.where(s_d_base == 0, 1.0, s_d_base))
+    inv_l = torch.tensor(LOG2E / s_luma, dtype=torch.float32).clamp_min(INV_L_MIN)
+    taps = [(dx, dy, dx, dy) for dy in range(-3, 4) for dx in range(-3, 4)]
+    col = torch.cat([indirect, torch.zeros_like(lum)[..., None]], -1)
+    acc, _, tw = _tap_model(col, geo, lum, None, taps, 3, s_normal, inv_d, inv_l,
+                            lambda dx, dy: 0.0)
+    live = valid & ~(tw < stencil.EPS)
+    inv = 1.0 / tw.clamp_min(stencil.EPS)
+    return torch.where(live[..., None], acc * inv[..., None], indirect)
+
+
+def _inputs(case, seed=7):
+    rng = np.random.default_rng(seed)
+    color4 = rng.random((H, W, 4), dtype=np.float32) * 2.0
+    color4[..., 3] *= 0.1
+    color4[3, 5, :3] = 40.0  # a firefly above the clamp
+    n = rng.normal(size=(H, W, 3)).astype(np.float32)  # many taps with ndot <= 0
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    depth = (rng.random((H, W), dtype=np.float32) * 20.0 + 1.0).astype(np.float32)
+    depth[rng.random((H, W)) < 0.1] = 0.0
+    if case == "equal_luma":
+        color4[:, :, :3] = 0.5  # every luminance equal
+        n[:] = n[0, 0]  # and every ndot 1, so every weight is near 1
+    if case == "background":
+        depth[:] = 0.0
+    if case == "border0":
+        depth[[0, -1], :] = 0.0
+        depth[:, [0, -1]] = 0.0
+    geo = np.concatenate([n, depth[..., None]], -1)
+    return torch.from_numpy(color4), torch.from_numpy(geo)
+
+
+def _sigmas(kind, case):
+    s = default_settings()
+    sig = ((s.eaw_normal_sigma, s.eaw_depth_sigma, s.eaw_luma_sigma) if kind == "eaw"
+           else (s.gather_normal_sigma, s.gather_depth_sigma, s.gather_luma_sigma))
+    return (0.0,) + sig[1:] if case == "s_normal0" else sig
+
+
+STAGE_CASES = [("random", 1, True), ("random", 3, True), ("random", 5, True),
+               ("random", 7, True), ("random", 3, False), ("s_normal0", 1, True),
+               ("s_normal0", 5, False), ("equal_luma", 1, True), ("background", 3, True),
+               ("border0", 1, True), ("border0", 7, False)]
+
+
+@pytest.mark.parametrize("case, stride, use_variance", STAGE_CASES,
+                         ids=[f"{c}-s{s}-{'var' if v else 'novar'}" for c, s, v in STAGE_CASES])
+def test_stage_tap_model_matches_plain(case, stride, use_variance):
+    color4, geo = _inputs(case)
+    sig = _sigmas("eaw", case)
+    got = stage_model(color4, geo, stride, use_variance, *sig)
+    want = stencil.eaw_stage_plain(color4, geo, stride, use_variance, *sig)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, **TOL)
+    if case == "background":  # every pixel passes through, clamped
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["random", "s_normal0", "equal_luma", "background", "border0"])
+def test_gather_tap_model_matches_plain(case):
+    color4, geo = _inputs(case)
+    indirect = color4[..., :3].contiguous()
+    sig = _sigmas("gather", case)
+    got = gather_model(indirect, geo, *sig)
+    want = stencil.spatial_gather_plain(indirect, geo, *sig)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, **TOL)
+
+
+# ---- (b) the launch plans -------------------------------------------------
+
+
+def _plan_outputs(plan, h, w):
+    """Every (block, thread, row) of `plan`, as the kernels index them:
+    (pixel x, y, the block's staged lattice origin x, y, the phase px, py)
+    of the threads' outputs inside the image."""
+    s = plan.stride
+    b = np.arange(plan.grid)
+    phase, tile = b % (s * s), b // (s * s)
+    px, py = phase % s, phase // s
+    i0 = (tile % plan.tiles_x) * plan.tile[0]
+    j0 = (tile // plan.tiles_x) * plan.tile[1]
+    tx = np.arange(plan.block[0])
+    ty = np.arange(plan.block[1])[:, None] * plan.rows + np.arange(plan.rows)[None, :]
+    i = (i0[:, None, None] + tx[None, :, None]).repeat(ty.size, 2)  # [blocks, TX, TY]
+    j = (j0[:, None, None] + ty.reshape(1, 1, -1)).repeat(plan.block[0], 1)
+    x = px[:, None, None] + s * i
+    y = py[:, None, None] + s * j
+    inside = (x < w) & (y < h)
+    sx = np.broadcast_to(px[:, None, None] + s * (i0[:, None, None] - plan.reach), x.shape)
+    sy = np.broadcast_to(py[:, None, None] + s * (j0[:, None, None] - plan.reach), x.shape)
+    return x[inside], y[inside], sx[inside], sy[inside]
+
+
+PLAN_SHAPES = [(1080, 1920), (540, 960), (67, 129), (5, 3), (1, 1)]
+
+
+def _check_plan(plan, h, w):
+    x, y, sx, sy = _plan_outputs(plan, h, w)
+    count = np.bincount(y.astype(np.int64) * w + x, minlength=h * w)
+    assert count.shape == (h * w,) and bool((count == 1).all()), "an output pixel not once"
+    s, r = plan.stride, plan.reach
+    for ox, oy in ((-r, -r), (r, r)):  # the footprint's corners; it is a rectangle
+        ax, ay = (x + ox * s - sx), (y + oy * s - sy)
+        assert bool(((ax % s == 0) & (ay % s == 0)).all())  # on the block's lattice
+        assert bool(((ax // s >= 0) & (ax // s < plan.staged[0])).all())
+        assert bool(((ay // s >= 0) & (ay // s < plan.staged[1])).all())
+    assert plan.shared_bytes <= stencil.TAP_SMEM_LIMIT
+    assert plan.block[0] == 32 and plan.block[0] * plan.block[1] <= 1024
+
+
+@pytest.mark.parametrize("hw", PLAN_SHAPES, ids=[f"{h}x{w}" for h, w in PLAN_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_stage_plan_covers_each_pixel_once(hw, dtype):
+    h, w = hw
+    for stride in (1, 3, 5, 7):
+        plan = stencil.stage_plan(h, w, stride, dtype)
+        assert plan.shared_bytes == stencil.stage_plan(8, 8, 1, dtype).shared_bytes
+        _check_plan(plan, h, w)
+
+
+@pytest.mark.parametrize("hw", PLAN_SHAPES, ids=[f"{h}x{w}" for h, w in PLAN_SHAPES])
+def test_gather_plan_covers_each_pixel_once(hw):
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_plan(stencil.gather_plan(*hw, dtype), *hw)
+
+
+def test_plans_refuse_what_the_kernels_cannot_take():
+    assert stencil.stage_plan(0, 16, 3).grid == 0 and stencil.gather_plan(16, 0).grid == 0
+    with pytest.raises(ValueError):
+        stencil.stage_plan(8, 8, 0)
+    big = stencil.TapPlan(grid=1, block=(32, 8), tiles_x=1, tiles_y=1, stride=1, tile=(32, 16),
+                          rows=2, reach=2, staged=(36, 20),
+                          shared_bytes=stencil.TAP_SMEM_LIMIT + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        stencil._checked(big, "eaw_stage")
+
+
+@pytest.mark.parametrize("src, prefix, tile, rows, reach", [
+    ("eaw_stage.cu", "K4", stencil.STAGE_TILE, stencil.STAGE_ROWS, stencil.STAGE_REACH),
+    ("spatial_gather.cu", "K5", stencil.GATHER_TILE, stencil.GATHER_ROWS, stencil.GATHER_REACH),
+])
+def test_plan_tiles_match_the_cuda_sources(src, prefix, tile, rows, reach):
+    with open(os.path.join(CSRC, src)) as f:
+        defs = dict(re.findall(rf"#define {prefix}_(\w+) (\d+)", f.read()))
+    assert (int(defs["TX"]), int(defs["TY"])) == tile
+    assert (int(defs["ROWS"]), int(defs["R"])) == (rows, reach)
