@@ -1,8 +1,8 @@
 // Shared pieces of the edge-aware stencil kernels (K3 eaw_disocclusion,
-// K4 eaw_stage, K5 spatial_gather, K6 eaw_pair): the luma, the
-// normal*depth edge-stopping weight of eaw_edge_stopping.h, the constants
-// of eaw_blur.hlsl, the storage loads and stores, and the body of one
-// a-trous stage.
+// K4 eaw_stage, K5 spatial_gather, K6 eaw_pair): the luma, the constants
+// of eaw_blur.hlsl and the storage loads and stores; and, for K6 alone, the
+// IEEE normal*depth edge-stopping weight of eaw_edge_stopping.h and the
+// body of one a-trous stage (K3-K5 take the tap of eaw_tap.cuh).
 //
 // Layout: images are [H,W,C] with channels last: color (r, g, b,
 // variance) and geo (decoded normal xyz, depth) read as four values per
@@ -11,7 +11,7 @@
 // either way. A bf16 value widens to float32 exactly (its bits shifted up);
 // a result is rounded to bf16 to nearest-even, as torch's .to(bfloat16) and
 // jnp's astype round. A tap is valid where it lies inside the image and
-// its depth is at least 1e-5; that explicit test is the valid mask of the
+// its depth is at least 1e-5; K6's explicit test is the valid mask of the
 // reference formulation (capsaicin_tpu/render/passes.py: in-bounds AND
 // d_tap >= 1e-5).
 #pragma once
@@ -21,7 +21,7 @@
 #define EAW_EPS 1e-8f
 #define EAW_FIREFLY_CLAMP 10.0f
 #define EAW_SPATIAL_VARIANCE_THRESHOLD 8.0f
-#define EAW_TILE 16
+#define EAW_TILE 16  // K6's tile
 
 // ---- storage: float or __nv_bfloat16 ------------------------------------
 

@@ -1,6 +1,6 @@
-// The edge-aware tap of K4 eaw_stage and K5 spatial_gather as the card
-// computes it cheaply, and their staging of image pixels into shared
-// memory. K3 and K6 keep the IEEE tap of eaw_common.cuh.
+// The edge-aware tap of K3 eaw_disocclusion, K4 eaw_stage and K5
+// spatial_gather as the card computes it cheaply, and their staging of
+// image pixels into shared memory. K6 keeps the IEEE tap of eaw_common.cuh.
 //
 // The tap. The reference weight of a tap is
 //   pow(max(ndot, 0), s_normal) * exp(-|d0 - d1| / (s_d_base * r))
@@ -22,7 +22,8 @@
 // Validity. A staged pixel outside the image is zero (cp.async's zero
 // fill, or a zero written), so its depth 0 fails `depth >= 1e-5` exactly as
 // the plain version's zero padding does; no tap tests bounds. An invalid
-// tap adds nothing because its exponent is -inf: where the tap has a luma
+// tap adds nothing because its exponent is -inf (and every other value it
+// is multiplied by, colour or moment, is finite): where the tap has a luma
 // term, its staged luminance is +inf (and inv_l is at least
 // EAW_TAP_INV_L_MIN, so |l0 - inf| * inv_l = inf even where s_l is +inf);
 // K4 without variance has no luma term and stages -inf in the colour's

@@ -6,15 +6,22 @@ triangle, in index order, with the Moller-Trumbore epsilons of
 ops.intersect. A miss returns t = tmax, u = v = 0 and prim = -1, the
 contract of the TPU kernel. Rays are [N,3] origins and directions; tmax is
 a scalar or [N] (tmax <= tmin marks a dead ray, which never hits).
+
+K1 returns exactly what the plain version returns, bit for bit: it runs
+the same test on every pair that a division-free prefilter does not rule
+out (csrc/static_trace.cu).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .. import kernels as K
 
 MAX_STATIC_TRIS = 128
+BLOCK = 256  # K1's rays a block (STATIC_BLOCK in csrc/static_trace.cu)
 
 K1 = K.register(K.Kernel(
     "static_trace", "static_trace",
@@ -82,6 +89,32 @@ def static_trace_plain(tris, origins, dirs, tmin: float, tmax, any_hit: bool):
         v = torch.where(ok, vv, v)
         prim = torch.where(ok, k, prim)
     return t_best, u, v, prim
+
+
+def any_hit_tests(tris, origins, dirs, tmin: float, tmax):
+    """The triangle tests an any-hit trace in index order does per ray, as
+    the plain version and K1 stop: the index of the first hit plus 1,
+    n_tris for a miss, 0 for a dead ray (tmax <= tmin). int64 [N]."""
+    n = origins.shape[0]
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=origins.device).expand(n)
+    prim = static_trace_plain(tris, origins, dirs, tmin, tmax, any_hit=True)[3].long()
+    tests = torch.where(prim >= 0, prim + 1, tris.shape[0])
+    return torch.where(tmax > tmin, tests, 0)
+
+
+def kernel_info(any_hit: bool, device_index: int = 0) -> dict:
+    """K1's build on a card (cudaFuncGetAttributes and the occupancy API):
+    registers a thread, local (spilled) bytes a thread, static and dynamic
+    shared bytes a block, resident blocks and warps an SM, SMs."""
+    out = (ctypes.c_int * 6)()
+    err = K.call("static_trace_info", [K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
+                 int(bool(any_hit)), out, device_index)
+    if err != 0:
+        raise RuntimeError(f"static_trace_info: CUDA error {err}")
+    info = dict(zip(("registers", "local_bytes", "shared_bytes", "dynamic_shared_bytes",
+                     "ctas_per_sm", "sms"), out))
+    info["warps_per_sm"] = info["ctas_per_sm"] * BLOCK // 32
+    return info
 
 
 def static_trace(scene: StaticScene, origins, dirs, tmin: float, tmax, any_hit: bool):

@@ -8,13 +8,14 @@ Buffers are [H,W,C] with channels last: color4 (r, g, b, variance), geo
 (decoded normal xyz, depth), moments (m1, m2, history length), the
 gather's indirect (r, g, b). A tap is valid where it lies inside the image
 and its depth is at least 1e-5. The plain versions zero-pad the image, so
-a pad tap has depth 0 and the depth test alone excludes it; K4 and K5 stage
-zeros for pixels outside the image and rely on that too, K3 and K6 test the
-bounds explicitly. All compute what the planar TPU layout computes.
+a pad tap has depth 0 and the depth test alone excludes it; K3, K4 and K5
+stage zeros for pixels outside the image and rely on that too, K6 tests
+the bounds explicitly. All compute what the planar TPU layout computes.
 
-K4 and K5 take their launch plan from `stage_plan` and `gather_plan`: a
-block owns a tile of outputs (for K4, of one phase's sub-lattice of the
-stride) and stages the tile and its reach into shared memory.
+K3, K4 and K5 take their launch plan from `disocc_plan`, `stage_plan` and
+`gather_plan`: a block owns a tile of outputs (for K4, of one phase's
+sub-lattice of the stride) and stages the tile and its reach into shared
+memory.
 
 Storage is float32, or bfloat16 under `eaw_bf16` (the TPU package's bf16
 planar storage): arithmetic is float32 either way, and every kernel and
@@ -44,16 +45,18 @@ SPATIAL_VARIANCE_THRESHOLD = 8.0
 _EAW_KW = (1.0, 2.0 / 3.0, 1.0 / 6.0)  # eaw_blur.hlsl:76
 EAW_TILE = 16  # csrc/eaw_common.cuh
 PAIR_SMEM_LIMIT = 48 * 1024  # K6's shared memory per block, without an opt-in
-# K4's and K5's tiles: outputs a block (columns, rows), outputs a thread
-# (one above the other), the reach in taps (K4_* in csrc/eaw_stage.cu,
-# K5_* in csrc/spatial_gather.cu)
+# K3's, K4's and K5's tiles: outputs a block (columns, rows), outputs a
+# thread (one above the other), the reach in taps (K3_* in
+# csrc/eaw_disocclusion.cu, K4_* in csrc/eaw_stage.cu, K5_* in
+# csrc/spatial_gather.cu)
+DISOCC_TILE, DISOCC_ROWS, DISOCC_REACH = (32, 8), 2, 3
 STAGE_TILE, STAGE_ROWS, STAGE_REACH = (32, 16), 2, 2
 GATHER_TILE, GATHER_ROWS, GATHER_REACH = (32, 8), 2, 3
-TAP_SMEM_LIMIT = 48 * 1024  # K4's and K5's dynamic shared memory a block, without an opt-in
+TAP_SMEM_LIMIT = 48 * 1024  # K3-K5's dynamic shared memory a block, without an opt-in
 
 K3 = K.register(K.Kernel(
     "eaw_disocclusion", "eaw_disocclusion",
-    [K.vp, K.vp, K.vp, K.vp, K.i32, K.i32, K.f32, K.f32, K.f32],
+    [K.vp, K.vp, K.vp, K.vp, K.i32, K.i32, K.f32, K.f32, K.f32, K.i32, K.i32, K.i32],
     source="capsaicin_tpu_torch/csrc/eaw_disocclusion.cu",
     replaces="capsaicin_tpu/ops/pallas_stencil.py:265",
 ))
@@ -128,6 +131,19 @@ def eaw_disocclusion_plain(color4, geo, moments, s_normal, s_depth, s_luma):
     out_c = torch.where(passthrough[..., None], rgb, f_c)
     out_v = torch.where(passthrough, cv, f_v)
     return torch.cat([out_c, out_v[..., None]], -1).to(dtype)
+
+
+def disocc_variance_scale(moments):
+    """8 / hist_len times the largest |m2| + m1^2 among a pixel's 7x7 taps:
+    the size of the terms whose difference is K3's variance (8 / hist_len *
+    |m2 - m1^2| of the blurred moments). Weights off by a relative d move the
+    variance by at most about 6 d times this, however much the difference
+    cancels; K3's approximate tap is held to 1e-3 of it (chip_smoke.py,
+    tests/test_torch_cuda.py). moments [H,W,3] -> [H,W] float32."""
+    m = moments.float()
+    terms = (m[..., 1].abs() + m[..., 0] * m[..., 0])[None, None]
+    local = F.max_pool2d(terms, 7, stride=1, padding=3)[0, 0]
+    return SPATIAL_VARIANCE_THRESHOLD / m[..., 2].clamp_min(1e-5) * local
 
 
 def eaw_stage_plain(color4, geo, stride: int, use_variance: bool, s_normal, s_depth, s_luma):
@@ -248,6 +264,15 @@ def stage_plan(h: int, w: int, stride: int, dtype=torch.float32) -> TapPlan:
 
 
 @functools.lru_cache(maxsize=64)
+def disocc_plan(h: int, w: int, dtype=torch.float32) -> TapPlan:
+    """K3's launch (stride 1): per staged pixel the float32 clamped colour
+    with its luminance and geo (16 B each) and the moments m1, m2 (8 B), and
+    under bf16 the raw geo (8 B)."""
+    return _tap_plan(h, w, 1, DISOCC_TILE, DISOCC_ROWS, DISOCC_REACH,
+                     40 + (8 if dtype == torch.bfloat16 else 0))
+
+
+@functools.lru_cache(maxsize=64)
 def gather_plan(h: int, w: int, dtype=torch.float32) -> TapPlan:
     """K5's launch (stride 1): per staged pixel the float32 indirect with
     its luminance and geo (16 B each), and under bf16 the raw geo (8 B)."""
@@ -263,11 +288,12 @@ def _checked(plan: TapPlan, name: str) -> TapPlan:
 
 
 def kernel_info(name: str, dtype=torch.float32, device_index: int = 0) -> dict:
-    """K4's ("eaw_stage", the instance with the variance, as the chain runs
-    it) or K5's ("spatial_gather") build on a card, from
-    cudaFuncGetAttributes and the occupancy API at its plan's shared
-    memory: registers a thread, local (spilled) bytes a thread, static and
-    dynamic shared bytes a block, resident blocks and warps an SM, SMs."""
+    """K3's ("eaw_disocclusion"), K4's ("eaw_stage", the instance with the
+    variance, as the chain runs it) or K5's ("spatial_gather") build on a
+    card, from cudaFuncGetAttributes and the occupancy API at its plan's
+    shared memory: registers a thread, local (spilled) bytes a thread,
+    static and dynamic shared bytes a block, resident blocks and warps an
+    SM, SMs."""
     out = (ctypes.c_int * 6)()
     bf16 = int(dtype == torch.bfloat16)
     if name == "eaw_stage":
@@ -275,8 +301,8 @@ def kernel_info(name: str, dtype=torch.float32, device_index: int = 0) -> dict:
         err = K.call("eaw_stage_info", [K.i32, K.i32, K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
                      bf16, 1, plan.shared_bytes, out, device_index)
     else:
-        plan = gather_plan(1, 1, dtype)
-        err = K.call("spatial_gather_info", [K.i32, K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
+        plan = (disocc_plan if name == "eaw_disocclusion" else gather_plan)(1, 1, dtype)
+        err = K.call(f"{name}_info", [K.i32, K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
                      bf16, plan.shared_bytes, out, device_index)
     if err != 0:
         raise RuntimeError(f"{name}_info: CUDA error {err}")
@@ -301,7 +327,7 @@ def _check_image(x, name, channels, h, w, dev, dtype):
 def eaw_disocclusion(color4, geo, moments, s_normal, s_depth, s_luma):
     """K3 on CUDA tensors, its plain version on CPU tensors.
     color4 [H,W,4], geo [H,W,4], moments [H,W,3], all of one storage type
-    -> [H,W,4] in that type."""
+    -> [H,W,4] in that type. Any H and W."""
     if K.on_cpu(color4):
         return eaw_disocclusion_plain(color4, geo, moments, s_normal, s_depth, s_luma)
     dev, dt = color4.device, _storage(color4)
@@ -309,9 +335,11 @@ def eaw_disocclusion(color4, geo, moments, s_normal, s_depth, s_luma):
     _check_image(color4, "color4", 4, h, w, dev, dt)
     _check_image(geo, "geo", 4, h, w, dev, dt)
     _check_image(moments, "moments", 3, h, w, dev, dt)
+    plan = _checked(disocc_plan(h, w, dt), "eaw_disocclusion")
     out = torch.empty_like(color4)
     K3.launch(dev, K.ptr(color4), K.ptr(geo), K.ptr(moments), K.ptr(out), h, w,
-              float(s_normal), float(s_depth), float(s_luma), storage=dt)
+              float(s_normal), float(s_depth), float(s_luma), plan.grid, plan.tiles_x,
+              plan.shared_bytes, storage=dt)
     return out
 
 

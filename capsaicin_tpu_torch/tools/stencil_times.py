@@ -1,5 +1,6 @@
-"""K4's and K5's times on the inputs of a 1080p Cornell frame (the third
-after a reset, default options): K4 (`eaw_stage`, with the variance) at
+"""K3's, K4's and K5's times on the inputs of a 1080p Cornell frame (the
+third after a reset, default options): K3 (`eaw_disocclusion`) on the
+denoiser's colour, geo and moments, K4 (`eaw_stage`, with the variance) at
 strides 1, 3, 5 and 7 on the denoiser's colour and geo, K5
 (`spatial_gather`) on the gather's full-resolution input and on the
 [540, 960] input of a `lowres_indirect` frame, each in float32 and in bf16
@@ -11,7 +12,8 @@ as the host issues them (as chip_smoke.py times every kernel), and
 call's host overhead in the wrapper leaves no gap between launches.
 
 It uses only the stencil and session API that every version of the port
-since K5 has (`stencil.eaw_stage`, `stencil.spatial_gather`, their plain
+since K5 has (`stencil.eaw_disocclusion`, `stencil.eaw_stage`,
+`stencil.spatial_gather`, their plain
 versions, `pipeline.render_frame(collect_aux=True)`), so an A/B of two trees
 on one card runs it from each tree's root in turns (parent, change, change,
 parent) and compares the times:
@@ -127,8 +129,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     x = stencil_inputs(session())
-    cases = {f"k4_s{k}": (stencil.eaw_stage, stencil.eaw_stage_plain,
-                          (x["color4"], x["geo"], k, True, *x["sig"])) for k in STRIDES}
+    cases = {"k3_full": (stencil.eaw_disocclusion, stencil.eaw_disocclusion_plain,
+                         (x["color4"], x["geo"], x["moments"], *x["sig"]))}
+    cases.update({f"k4_s{k}": (stencil.eaw_stage, stencil.eaw_stage_plain,
+                               (x["color4"], x["geo"], k, True, *x["sig"])) for k in STRIDES})
     cases["k5_full"] = (stencil.spatial_gather, stencil.spatial_gather_plain,
                         (x["indirect"], x["full_geo"], *x["gsig"]))
     cases["k5_half"] = (stencil.spatial_gather, stencil.spatial_gather_plain,

@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (capsaicin_tpu_torch) on one NVIDIA
 GPU: builds the CUDA kernels from csrc/, holds each (and its bf16-storage
 instance) against its plain PyTorch version at the shapes of the 1080p
-frame, holds the BVH walk (K7), the brute-force intersector (K8) and the
+frame (the small-scene trace, K1, bit-equal on the frame's four ray
+sets), holds the BVH walk (K7), the brute-force intersector (K8) and the
 stream traversal (K10, with its count pass K11) to their plain versions on
 the full colonnade's 1080p rays (K7 bit-equal to its walk's plain
 versions, its bound counted from the ordered walk) and K10 to K7 on all of
@@ -17,8 +18,10 @@ Every kernel's time stands beside its bound: the largest of its bytes over
 3.35 TB/s, its float32 operations over 67 TFLOP/s (the H100 SXM's HBM rate
 and float32 rate) and its special-function operations (lg2, ex2, rcp,
 sqrt) over 16 a clock on each SM at the card's maximum SM clock; a time
-under 95% of it fails the run. It prints K4's, K5's, K7's and K10's
-registers, local and shared memory and resident warps.
+under 95% of it fails the run (an any-hit trace's bound counts the
+triangle tests up to each ray's first hit). It prints K1's, K3's, K4's,
+K5's, K7's and K10's registers, local and shared memory and resident
+warps.
 
     python3 chip_smoke.py
 
@@ -63,8 +66,9 @@ OPS_ATTR = 60  # K2: interpolation of P, N, UV and the normalisation
 # channel summed (r, g, b; K3's two moments; the variance's w^2 3) and 1
 # for the weight sum; MUFU: lg2 and ex2 a tap, and a pixel's reciprocals
 # (inv_d, 1/tw; inv_l where it is per pixel) and sqrt (the variance's
-# sigma). K3 and K6 still call powf/expf: this is their function's work,
-# not their code's.
+# sigma). K6 still calls powf/expf: this is its function's work, not its
+# code's. K3's taps serve only the pixels it blurs (depth >= 1e-5, history
+# shorter than 8); the rest pass through.
 TAP_OPS = {"eaw_disocclusion": 24, "eaw_stage": 24, "spatial_gather": 20, "eaw_pair": 24}
 MUFU_TAP = 2
 MUFU_PIXEL = {"eaw_disocclusion": 2, "eaw_stage": 4, "spatial_gather": 2, "eaw_pair": 8}
@@ -75,6 +79,7 @@ OPS_IBOX = 86
 STREAM_BLOCKS = (32, 64, 128)  # K10's block sizes timed (bench.py:129-139)
 STREAM_LARGE = 8  # the full colonnade at blocks of 8: 32,768 blocks
 SUBSAMPLE = 65_536  # rays of the colonnade's sets the plain walk takes
+SPATIAL_VARIANCE_THRESHOLD = 8.0  # K3 blurs a pixel whose history is shorter
 
 # Per-frame launches of the flagship frame (gi1080, default options)
 FLAGSHIP_LAUNCHES = {"static_trace": 4, "hit_attributes": 3, "spatial_gather": 1,
@@ -298,83 +303,123 @@ def hold_any(what, got, want):
     check(n_diff <= 1e-4 * got.shape[0], f"{what}: more than 1e-4 of rays differ")
 
 
+def bits(x):
+    """A tensor's bits, so that equality is bit-equality (-0.0 is not 0.0)."""
+    import torch
+
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
 def compare_trace(session, report):
-    """K1 and K8 (closest on primary rays, any-hit on shadow rays) and K2
-    against their plain versions on the 1080p frame's rays."""
+    """K1 on the four ray sets of a 1080p frame (the third after a reset:
+    primary closest, direct shadow any-hit, bounce closest, NEE any-hit),
+    bit-equal to its plain version on every ray, each set timed and bounded
+    by the triangle tests it needs (closest: every live ray tests every
+    triangle; any-hit: up to its first hit, `static.any_hit_tests`); K1's
+    builds; K2 and K8 against their plain versions on the primary and
+    shadow sets, K8's any-hit bounded as K1's."""
     import torch
 
     from capsaicin_tpu_torch.ops import brute, lookup, static
-    from capsaicin_tpu_torch.ops import camera as cam
-    from capsaicin_tpu_torch.render import shading
 
-    n = W * H
-    xy = cam.pixel_grid(W, H, session.device)
-    o, d = cam.create_primary_rays(session.camera, xy, (W, H), 0)
-    o = o.reshape(n, 3).contiguous()
-    d = d.reshape(n, 3).contiguous()
-    tmax = torch.full((n,), 1e6, device=session.device)
     acc, table = session.accel, session.shade.table
+    n_tris = acc.n_tris
+    calls = frame_rays(session)
+    check([c[0] for c in calls] == ["closest", "any", "closest", "any"],
+          f"Cornell frame traces {[c[0] for c in calls]}")
+    builds = {}
+    for any_hit in (False, True):
+        info = builds["any_hit" if any_hit else "closest"] = static.kernel_info(any_hit)
+        print(f"static_trace {'any-hit' if any_hit else 'closest'} build: {info['registers']} "
+              f"registers a thread, {info['local_bytes']} B local, {info['shared_bytes']} B static "
+              f"shared memory a block, {info['ctas_per_sm']} blocks = {info['warps_per_sm']} warps "
+              f"resident an SM")
+        check(info["local_bytes"] == 0, f"K1 uses {info['local_bytes']} B of local memory")
+    per_set, any_tests = {}, {}
+    for name, (kind, o, d, tmin, tmax) in zip(("primary", "shadow", "bounce", "nee"), calls):
+        any_hit = kind == "any"
+        n = o.shape[0]
+        got = static.static_trace(acc, o, d, tmin, tmax, any_hit)
+        want = static.static_trace_plain(acc.tris, o, d, tmin, tmax, any_hit)
+        if any_hit:
+            mismatches = {"hit": int((got != (want[3] >= 0)).sum())}
+        else:
+            mismatches = {k: int((bits(a) != bits(b)).sum())
+                          for k, a, b in zip("tuvp", got, want)}
+        live = int((tmax > tmin).sum())
+        tests = (any_tests.setdefault(name, static.any_hit_tests(acc.tris, o, d, tmin, tmax))
+                 if any_hit else None)
+        n_tests = float(tests.sum()) if any_hit else float(live * n_tris)
+        # per ray: origin, direction, tmax in (28 B); t, u, v, prim (16 B) or the hit out
+        entry = dict(rays=n, live=live, hits=int((want[3] >= 0).sum()),
+                     tests_per_ray=n_tests / n, mismatches=mismatches,
+                     ms=cuda_ms(lambda: static.static_trace(acc, o, d, tmin, tmax, any_hit), 20),
+                     plain_ms=cuda_ms(lambda: static.static_trace_plain(acc.tris, o, d, tmin, tmax,
+                                                                        any_hit), 3),
+                     **bound(n_tests * OPS_TRI, n * (28 + (1 if any_hit else 16)) + n_tris * 36))
+        per_set[name] = entry
+        print(f"K1 {kind} ({name}): {n} rays ({live} live, {entry['hits']} hits), "
+              f"{entry['tests_per_ray']:.2f} triangle tests a ray; mismatches against its plain "
+              f"version {mismatches}; {entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f} ms), "
+              f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+        check(not any(mismatches.values()), f"K1 {kind} ({name}): differs from its plain version")
+        check(entry["ms"] >= 0.95 * entry["bound_ms"],
+              f"K1 {kind} ({name}): {entry['ms']} ms below 95% of its bound {entry['bound_ms']} ms")
+    mean = lambda key: sum(e[key] for e in per_set.values()) / len(per_set)  # noqa: E731
+    report["static_trace"] = dict(max_abs_err=0.0, ms=mean("ms"), plain_ms=mean("plain_ms"),
+                                  bound_ms=mean("bound_ms"), bound_by=per_set["primary"]["bound_by"],
+                                  library_ms=None, build=builds, per_set=per_set)
 
-    t, u, v, prim = static.static_trace(acc, o, d, 0.0, tmax, False)
-    tp, up, vp, pp = static.static_trace_plain(acc.tris, o, d, 0.0, tmax, False)
-    err = hold_hits("K1 closest vs its plain version, Cornell primary", (t, u, v, prim),
-                    (tp, up, vp, pp))
-
-    # shadow rays of the direct pass: hit points toward the light, dead
-    # (tmax = -1) where the primary ray missed or the surface faces away
-    hit = lookup.hit_attributes(table, prim, u, v)
-    hitp = lookup.hit_attributes_plain(table, prim, u, v)
+    # K2 on the primary hits
+    _, o, d, tmin, tmax = calls[0]
+    t, u, v, prim = static.static_trace(acc, o, d, tmin, tmax, False)
+    n = prim.shape[0]
+    got = lookup.hit_attributes(table, prim, u, v)
+    want = lookup.hit_attributes_plain(table, prim, u, v)
     k2_err = 0.0
-    for key in hit:
-        a, b = hit[key].double(), hitp[key].double()
+    for key in want:
+        a, b = got[key].double(), want[key].double()
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
         k2_err = max(k2_err, float((a - b).abs().max()))
-    print(f"K2: max abs err {k2_err:.3g} against the plain version")
-    kd = shading.material_from_hit(session.shade, hitp)
-    ldir, unshadowed = shading.direct_illumination_terms(hitp["p"], hitp["n"], kd, 0)
-    ldir = ldir.contiguous()
-    live = (pp >= 0) & (unshadowed > 0.0).any(-1)
-    stmax = torch.where(live, shading.LIGHT_DISTANCE, -1.0)
-    sp = hitp["p"].contiguous()
-    hold_any(f"K1 any-hit vs its plain version, Cornell shadow ({int((~live).sum())} dead)",
-             static.static_trace(acc, sp, ldir, shading.SHADOW_TMIN, stmax, True),
-             static.static_trace_plain(acc.tris, sp, ldir, shading.SHADOW_TMIN, stmax, True)[3]
-             >= 0)
-
-    k1_ms = cuda_ms(lambda: static.static_trace(acc, o, d, 0.0, tmax, False), 20)
-    k1_plain = cuda_ms(lambda: static.static_trace_plain(acc.tris, o, d, 0.0, tmax, False), 5)
-    any_ms = cuda_ms(lambda: static.static_trace(acc, sp, ldir, shading.SHADOW_TMIN, stmax, True), 20)
-    any_plain = cuda_ms(
-        lambda: static.static_trace_plain(acc.tris, sp, ldir, shading.SHADOW_TMIN, stmax, True), 5)
-    print(f"K1 closest {k1_ms:.4f} ms (plain {k1_plain:.4f} ms); "
-          f"any-hit {any_ms:.4f} ms (plain {any_plain:.4f} ms)")
     k2_ms = cuda_ms(lambda: lookup.hit_attributes(table, prim, u, v), 20)
     k2_plain = cuda_ms(lambda: lookup.hit_attributes_plain(table, prim, u, v), 20)
-    print(f"K2 {k2_ms:.4f} ms (plain {k2_plain:.4f} ms)")
-    n_tris = acc.n_tris
-    # per ray: origin, direction, tmax in (28 B); t, u, v, prim out (16 B)
-    report["static_trace"] = dict(max_abs_err=err, ms=k1_ms, plain_ms=k1_plain,
-                                  **bound(n * n_tris * OPS_TRI, n * 44 + n_tris * 36))
+    print(f"K2: max abs err {k2_err:.3g} against the plain version; {k2_ms:.4f} ms (plain "
+          f"{k2_plain:.4f} ms)")
     # per ray: prim, u, v in (12 B); P, N, UV, kd, texture and mesh id out (52 B)
     report["hit_attributes"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
                                     **bound(n * OPS_ATTR, n * 64 + table.numel() * 4))
 
-    # K8 on the same rays and triangles (the brute-force packing is K1's)
-    scene8 = acc
-    k8 = brute.brute_trace(scene8, o, d, 0.0, tmax, False)
-    k8p = brute.brute_trace_plain(scene8.tris, o, d, 0.0, tmax, False)
+    # K8 on the same rays and triangles (the brute-force packing is K1's);
+    # its any-hit stops at the first hit in index order, as K1's does
+    k8 = brute.brute_trace(acc, o, d, tmin, tmax, False)
+    k8p = brute.brute_trace_plain(acc.tris, o, d, tmin, tmax, False)
     k8_err = hold_hits("K8 closest vs its plain version, Cornell primary", k8, k8p)
     hold_hits("K8 closest vs K1, Cornell primary", k8, (t, u, v, prim), hits_only=True)
+    _, so, sd, stmin, stmax = calls[1]
     hold_any("K8 any-hit vs its plain version, Cornell shadow",
-             brute.brute_trace(scene8, sp, ldir, shading.SHADOW_TMIN, stmax, True),
-             brute.brute_trace_plain(scene8.tris, sp, ldir, shading.SHADOW_TMIN, stmax, True))
-    k8_ms = cuda_ms(lambda: brute.brute_trace(scene8, o, d, 0.0, tmax, False), 20)
-    k8_plain = cuda_ms(lambda: brute.brute_trace_plain(scene8.tris, o, d, 0.0, tmax, False), 3)
-    k8_any = cuda_ms(lambda: brute.brute_trace(scene8, sp, ldir, shading.SHADOW_TMIN, stmax,
-                                               True), 20)
-    print(f"K8 closest {k8_ms:.4f} ms (plain {k8_plain:.4f} ms); any-hit {k8_any:.4f} ms")
+             brute.brute_trace(acc, so, sd, stmin, stmax, True),
+             brute.brute_trace_plain(acc.tris, so, sd, stmin, stmax, True))
+    k8_ms = cuda_ms(lambda: brute.brute_trace(acc, o, d, tmin, tmax, False), 20)
+    k8_plain = cuda_ms(lambda: brute.brute_trace_plain(acc.tris, o, d, tmin, tmax, False), 3)
+    k8_any = cuda_ms(lambda: brute.brute_trace(acc, so, sd, stmin, stmax, True), 20)
+    any_bound = bound(float(any_tests["shadow"].sum()) * OPS_TRI, n * 29 + n_tris * 36)
+    print(f"K8 closest {k8_ms:.4f} ms (plain {k8_plain:.4f} ms); any-hit {k8_any:.4f} ms, bound "
+          f"{any_bound['bound_ms']:.4f} ms (K1's test count)")
+    check(k8_any >= 0.95 * any_bound["bound_ms"],
+          f"K8 any-hit: {k8_any} ms below 95% of its bound {any_bound['bound_ms']} ms")
     report["brute_trace"] = dict(max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_plain, any_ms=k8_any,
-                                 **bound(n * n_tris * OPS_TRI, n * 44 + n_tris * 36))
+                                 any_bound_ms=any_bound["bound_ms"],
+                                 **bound(float((tmax > tmin).sum()) * n_tris * OPS_TRI,
+                                         n * 44 + n_tris * 36))
+
+
+def blurred(name, args):
+    """The pixels whose taps a stencil's function needs: all of them, but
+    for K3 only those it blurs (depth >= 1e-5 and a history shorter than 8)."""
+    if name != "eaw_disocclusion":
+        return args[0].shape[0] * args[0].shape[1]
+    geo, mom = args[1], args[2]
+    return int(((geo[..., 3] >= 1e-5) & (mom[..., 2] < SPATIAL_VARIANCE_THRESHOLD)).sum())
 
 
 def compare_stencils(session, report):
@@ -409,6 +454,28 @@ def compare_stencils(session, report):
               f"{what}: bf16 max abs err {e_max}, mean {e_mean}")
         return e_max, e_mean
 
+    def close_disocc(a, b, moments, what):
+        """K3: colour as `close` (bf16 `close_bf16`); the variance, 8 /
+        hist_len * |m2 - m1^2| of the blurred moments, which cancels, within
+        1e-4 + 1e-3 of itself (bf16 2^-7, an ulp) + 1e-3 of its terms before
+        the difference (stencil.disocc_variance_scale). Returns the max abs
+        error (bf16: and the mean)."""
+        bf16 = a.dtype == torch.bfloat16
+        got = (close_bf16 if bf16 else close)(a[..., :3].contiguous(), b[..., :3].contiguous(),
+                                            f"{what} colour")
+        err = (a[..., 3].float() - b[..., 3].float()).abs()
+        scale = stencil.disocc_variance_scale(moments)
+        bar = 1e-4 + (2.0 ** -7 if bf16 else 1e-3) * b[..., 3].float().abs() + 1e-3 * scale
+        tol = bool((err <= 1e-4 + (2.0 ** -7 if bf16 else 1e-3) * b[..., 3].float().abs()).all())
+        print(f"{what}: variance max abs err {float(err.max()):.3g}, at most "
+              f"{float((err / (1e-4 + scale)).max()):.3g} of 1e-4 + its terms (bar 1e-3); within "
+              f"the colour's rtol and atol alone: {tol}")
+        check(bool((err <= bar).all()), f"{what}: variance beyond its bar by "
+              f"{float((err - bar).max())}")
+        if bf16:
+            return max(got[0], float(err.max())), max(got[1], float(err.mean()))
+        return max(got, float(err.max()))
+
     # each kernel, its plain version and the argument sets it is held on
     cases = {
         "eaw_disocclusion": (stencil.eaw_disocclusion, stencil.eaw_disocclusion_plain,
@@ -431,15 +498,22 @@ def compare_stencils(session, report):
                 close(kernel(*a), plain(*a), f"{name} stride {a[2]} without the variance")
                 b = tuple(v.bfloat16() if torch.is_tensor(v) else v for v in a)
                 close_bf16(kernel(*b), plain(*b), f"{name} bf16 stride {a[2]} without the variance")
-        bounds = [bound(px * taps * TAP_OPS[name], px * bpp,
-                        px * (taps * MUFU_TAP + MUFU_PIXEL[name]))
-                  for px in (a[0].shape[0] * a[0].shape[1] for a in arg_sets)]
+        bounds = [bound(bx * taps * TAP_OPS[name], px * bpp,
+                        bx * (taps * MUFU_TAP + MUFU_PIXEL[name]))
+                  for px, bx in ((a[0].shape[0] * a[0].shape[1], blurred(name, a))
+                                 for a in arg_sets)]
         bf_sets = [tuple(a.bfloat16() if torch.is_tensor(a) else a for a in args)
                    for args in arg_sets]
-        err = max(close(kernel(*a), plain(*a), f"{name} case {n}")
-                  for n, a in enumerate(arg_sets))
-        bf_err = [close_bf16(kernel(*a), plain(*a), f"{name} bf16 case {n}")
-                  for n, a in enumerate(bf_sets)]
+        if name == "eaw_disocclusion":
+            err = max(close_disocc(kernel(*a), plain(*a), a[2], f"{name} case {n}")
+                      for n, a in enumerate(arg_sets))
+            bf_err = [close_disocc(kernel(*a), plain(*a), a[2], f"{name} bf16 case {n}")
+                      for n, a in enumerate(bf_sets)]
+        else:
+            err = max(close(kernel(*a), plain(*a), f"{name} case {n}")
+                      for n, a in enumerate(arg_sets))
+            bf_err = [close_bf16(kernel(*a), plain(*a), f"{name} bf16 case {n}")
+                      for n, a in enumerate(bf_sets)]
         ms = [cuda_ms(lambda a=a: kernel(*a), 20) for a in arg_sets]
         plain_ms = [cuda_ms(lambda a=a: plain(*a), 3) for a in arg_sets]
         bf_ms = [cuda_ms(lambda a=a: kernel(*a), 20) for a in bf_sets]
@@ -454,7 +528,7 @@ def compare_stencils(session, report):
         if len(ms) > 1:  # per case: strides, pairs, or the gather's full and half resolution
             entry.update(case_ms=ms, case_plain_ms=plain_ms, case_bf16_ms=bf_ms,
                          case_bound_ms=[b["bound_ms"] for b in bounds])
-        if name in ("eaw_stage", "spatial_gather"):
+        if name in ("eaw_disocclusion", "eaw_stage", "spatial_gather"):
             entry["build"] = {}
             for dt in (torch.float32, torch.bfloat16):
                 info = stencil.kernel_info(name, dt)
@@ -468,6 +542,22 @@ def compare_stencils(session, report):
               f"{entry['bf16_mean_abs_err']:.3g}); {entry['ms']:.4f} ms (plain "
               f"{entry['plain_ms']:.4f} ms), bf16 {entry['bf16_ms']:.4f} ms (plain "
               f"{entry['bf16_plain_ms']:.4f} ms); per case {[round(x, 4) for x in ms]} ms")
+
+    # K3 where the history has filled on half the image (those pixels pass
+    # through, and blocks all of whose outputs do stage nothing), and at
+    # [540, 960] (every other pixel of the frame's inputs)
+    steady = mom.clone()
+    steady[:, : W // 2, 2] += stencil.SPATIAL_VARIANCE_THRESHOLD
+    held = {"the history filled on half the image": (color4, geo, steady),
+            "[540, 960]": tuple(v[::2, ::2].contiguous() for v in (color4, geo, mom))}
+    for case, inputs in held.items():
+        for dt in (torch.float32, torch.bfloat16):
+            a = (*(v.to(dt) for v in inputs), *sig)
+            what = f"eaw_disocclusion {str(dt).split('.')[1]}, {case}"
+            close_disocc(stencil.eaw_disocclusion(*a), stencil.eaw_disocclusion_plain(*a), a[2],
+                         what)
+            print(f"{what}: {cuda_ms(lambda: stencil.eaw_disocclusion(*a), 20):.4f} ms, "
+                  f"{blurred('eaw_disocclusion', a)} pixels blurred")
 
     def plain_chain(groups=tuple((k,) for k in strides), dt=torch.float32):
         """The chain of plain versions in `dt` storage, grouped as the

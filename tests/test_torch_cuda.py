@@ -2,9 +2,11 @@
 float32 (rtol 1e-3, atol 1e-4) and in bf16 storage (max abs err <= 2e-2
 and mean abs err <= 1e-3: a float32 sum taken in another order can flip a
 bf16 rounding by an ulp), the launches of a default-options frame, and
-frames free of host syncs. K4 and K5 also on images smaller than a tile
-and on the edge cases of their tap (s_normal = 0, equal luminances, an
-all-background image, depth 0 on the border). The intersectors (K7 BVH walk, K8 brute force)
+frames free of host syncs. K3, K4 and K5 also on images smaller than a
+tile and on the edge cases of their tap (s_normal = 0, equal luminances, an
+all-background image, depth 0 on the border; K3 also every history at
+least 8 and zero normals). K1 is held bit-equal to its plain version with
+1, 40 and 128 triangles. The intersectors (K7 BVH walk, K8 brute force)
 are held to hit ids equal except at equal t (rtol 1e-4) or on triangle
 edges, t/u/v within 1e-5 where the ids agree, and K7 also bit-equal to
 its own walk's plain version (the ordered walk), on a persistent grid's
@@ -59,6 +61,22 @@ def _bf16_close(got, want):
     err = (got.float() - want.float()).abs()
     assert float(err.max()) <= 2e-2 and float(err.mean()) <= 1e-3, (float(err.max()),
                                                                     float(err.mean()))
+
+
+def _disocc_close(got, want, moments, msg=""):
+    """K3 against its plain version: colour as every stencil (float32 rtol
+    1e-3, atol 1e-4; bf16 as _bf16_close); the variance, 8 / hist_len *
+    |m2 - m1^2| of the blurred moments, which cancels, within 1e-4 plus
+    1e-3 of itself (bf16 2^-7, an ulp) plus 1e-3 of its terms before the
+    difference (stencil.disocc_variance_scale)."""
+    if got.dtype == torch.bfloat16:
+        _bf16_close(got[..., :3], want[..., :3])
+    else:
+        torch.testing.assert_close(got[..., :3], want[..., :3], rtol=1e-3, atol=1e-4, msg=msg)
+    err = (got[..., 3].float() - want[..., 3].float()).abs()
+    rel = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-3
+    bar = 1e-4 + rel * want[..., 3].float().abs() + 1e-3 * stencil.disocc_variance_scale(moments)
+    assert bool((err <= bar).all()), (msg, float((err - bar).max()))
 
 
 def _stencil_inputs(dev, h, w, seed):
@@ -125,9 +143,8 @@ def test_eaw_kernels(dev, stride):
     color4, geo, mom = _stencil_inputs(dev, h, w, stride)
     s = default_settings()
     sig = (s.eaw_normal_sigma, s.eaw_depth_sigma, s.eaw_luma_sigma)
-    torch.testing.assert_close(stencil.eaw_disocclusion(color4, geo, mom, *sig),
-                               stencil.eaw_disocclusion_plain(color4, geo, mom, *sig),
-                               rtol=1e-3, atol=1e-4)
+    _disocc_close(stencil.eaw_disocclusion(color4, geo, mom, *sig),
+                  stencil.eaw_disocclusion_plain(color4, geo, mom, *sig), mom)
     for use_variance in (True, False):
         torch.testing.assert_close(
             stencil.eaw_stage(color4, geo, stride, use_variance, *sig),
@@ -180,6 +197,75 @@ def test_spatial_gather_kernel(dev, hw):
                                        rtol=1e-3, atol=1e-4, msg=f"{hh}x{ww} {case}")
             _bf16_close(stencil.spatial_gather(ind.bfloat16(), g.bfloat16(), *cs),
                         stencil.spatial_gather_plain(ind.bfloat16(), g.bfloat16(), *cs))
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (7, 13), (33, 65), (540, 960)],
+                         ids=["1x1", "7x13", "33x65", "lowres1080"])
+def test_disocclusion_kernel(dev, hw):
+    """K3 in float32 and bf16 on the edge cases of its tap, with histories
+    shorter and longer than 8 (blocks that blur and blocks that only pass
+    through), every history at least 8, and zero normals (tw = 0); one
+    launch a call."""
+    h, w = hw
+    color4, geo, mom = _stencil_inputs(dev, h, w, h + w)
+    s = default_settings()
+    sig = (s.eaw_normal_sigma, s.eaw_depth_sigma, s.eaw_luma_sigma)
+    for case in TAP_CASES + ("hist8", "tw0"):
+        c, g, cs = _tap_case(color4, geo, sig, case)
+        mo = mom.clone()
+        if case == "hist8":
+            mo[..., 2] += 8.0
+        if case == "tw0":
+            g[::3, ::2, :3] = 0.0
+        before = stencil.K3.launches
+        got = stencil.eaw_disocclusion(c, g, mo, *cs)
+        assert stencil.K3.launches == before + 1
+        _disocc_close(got, stencil.eaw_disocclusion_plain(c, g, mo, *cs), mo, f"{h}x{w} {case}")
+        if case == "hist8":  # every pixel passes through: exact
+            assert torch.equal(got, stencil.eaw_disocclusion_plain(c, g, mo, *cs))
+        b = (c.bfloat16(), g.bfloat16(), mo.bfloat16())
+        _disocc_close(stencil.eaw_disocclusion(*b, *cs), stencil.eaw_disocclusion_plain(*b, *cs),
+                      b[2], f"{h}x{w} {case} bf16")
+
+
+def _static_scene_rays(dev, n_tris, n_rays, seed):
+    """The first n_tris of the Cornell box's 40 triangles, then random ones
+    inside the box; rays from inside and outside the box, a quarter aimed at
+    triangle vertices and edge midpoints, every 9th dead."""
+    rng = np.random.default_rng(seed)
+    sc = build_scene(cornell_box())
+    tris = np.stack([sc.tri_v0, sc.tri_v1, sc.tri_v2], 1).astype(np.float32)[:n_tris]
+    if n_tris > len(tris):
+        c = rng.uniform([-0.8, 0.1, -0.8], [0.8, 1.9, 0.8], (n_tris - len(tris), 1, 3))
+        tris = np.concatenate([tris, c + rng.normal(size=(len(c), 3, 3)) * 0.2]).astype(np.float32)
+    o = rng.uniform([-1.0, 0.0, -4.0], [1.0, 2.0, 0.9], (n_rays, 3)).astype(np.float32)
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    k = rng.integers(0, n_tris, n_rays // 4)
+    st = rng.choice([0.0, 0.5, 1.0], (n_rays // 4, 2))
+    st[:, 1] = np.where(st.sum(1) > 1.0, 0.0, st[:, 1])
+    target = tris[k, 0] + st[:, :1] * (tris[k, 1] - tris[k, 0]) + st[:, 1:] * (tris[k, 2] - tris[k, 0])
+    d[: n_rays // 4] = target - o[: n_rays // 4]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.full(n_rays, 1e6, np.float32)
+    tmax[::9] = -1.0
+    return (static.build_static(torch.from_numpy(tris).to(dev)),
+            *(torch.from_numpy(x).to(dev) for x in (o, d, tmax)))
+
+
+@pytest.mark.parametrize("n_tris", [1, 40, 128])
+def test_static_trace_bit_equal_to_plain(dev, n_tris):
+    """K1 bit-equal to its plain version (t, u, v, prim; the any-hit mask)
+    with 1, 40 and 128 triangles, a ray count that is not a multiple of
+    the block, dead rays, rays through vertices and edges, tmin 0 and 1e-4."""
+    scene, o, d, tmax = _static_scene_rays(dev, n_tris, 20_011, n_tris)
+    for tmin in (0.0, 1e-4):
+        got = static.static_trace(scene, o, d, tmin, tmax, False)
+        want = static.static_trace_plain(scene.tris, o, d, tmin, tmax, False)
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(static.static_trace(scene, o, d, tmin, tmax, True),
+                           static.static_trace_plain(scene.tris, o, d, tmin, tmax, True)[3] >= 0)
+    assert int((want[3] >= 0).sum()) > 1000 and not bool((want[3][::9] >= 0).any())
 
 
 @pytest.mark.parametrize("strides", [(1, 3), (5, 7)])

@@ -1,16 +1,19 @@
-"""K4's and K5's tap and launch plans, on the CPU.
+"""K3's, K4's and K5's tap and launch plans, on the CPU.
 
 (a) A float32 model of the tap as the kernels compute it (csrc/eaw_tap.cuh:
 one log2 and one exp2 of a summed exponent, the reciprocals hoisted per
 pixel, hw as its log2, the variance summed with w_full^2, sums as fused
 multiply-adds in dy-then-dx order, staged pixels outside the image zero and
 an invalid tap's luminance +inf) against the plain versions
-`eaw_stage_plain` and `spatial_gather_plain`, rtol 1e-3 and atol 1e-4 as the
-kernels are held on the card, on random 32x48 inputs and on the edge cases
-of the reference: ndot <= 0, s_normal = 0, equal luminances, an
-all-background image, depth 0 on the border.
+`eaw_stage_plain`, `spatial_gather_plain` and `eaw_disocclusion_plain`,
+rtol 1e-3 and atol 1e-4 as the kernels are held on the card, on random
+32x48 inputs and on the edge cases of the reference: ndot <= 0, s_normal =
+0, equal luminances, an all-background image, depth 0 on the border; and
+for K3 (its moments a third staged array, the variance 8 / hist_len *
+|m2 - m1^2|) every history at least 8 (every pixel passes through,
+exactly) and zero normals (tw = 0: the colour passes, the variance is 0).
 
-(b) `stage_plan` and `gather_plan`: every output pixel is computed by
+(b) `disocc_plan`, `stage_plan` and `gather_plan`: every output pixel is computed by
 exactly one thread, every tap of a pixel lies in its block's staged tile,
 and the shared memory stays under the limit, at [1080,1920], [540,960],
 [67,129], [5,3] and [1,1] and strides 1, 3, 5, 7; the tiles match the
@@ -48,15 +51,15 @@ def _pad(x, reach, value=0.0):
 
 def _tap_model(col, geo, lum, vlog, taps, reach_px, s_normal, inv_d, inv_l, hw_log2):
     """The kernels' tap sum over `taps` [(dx, dy, offset_x, offset_y)] of
-    staged colour `col`, geo, luminance `lum` (None: no luma term) and
-    additive validity `vlog` (None: none); inv_d and inv_l per pixel.
-    Returns (acc rgb, acc of w^2 * col[..., 3], tw)."""
+    staged values `col` [H,W,C], geo, luminance `lum` (None: no luma term)
+    and additive validity `vlog` (None: none); inv_d and inv_l per pixel.
+    Returns (acc of w * col[..., :-1], acc of w^2 * col[..., -1], tw)."""
     h, w = geo.shape[:2]
     cp, gp = _pad(col, reach_px), _pad(geo, reach_px)
     lp = None if lum is None else _pad(lum[..., None], reach_px, math.inf)[..., 0]
     vp = None if vlog is None else _pad(vlog[..., None], reach_px, -math.inf)[..., 0]
     nfloor = 1.0 if s_normal == 0 else 0.0
-    acc = torch.zeros(h, w, 3)
+    acc = torch.zeros(h, w, col.shape[-1] - 1)
     acc_v = torch.zeros(h, w)
     tw = torch.zeros(h, w)
     n, d = geo[..., :3], geo[..., 3]
@@ -75,9 +78,9 @@ def _tap_model(col, geo, lum, vlog, taps, reach_px, s_normal, inv_d, inv_l, hw_l
         if vp is not None:
             e = e + vp[sl]
         wt = torch.exp2(e)
-        acc = _fma(wt[..., None], tc[..., :3], acc)
+        acc = _fma(wt[..., None], tc[..., :-1], acc)
         tw = tw + wt
-        acc_v = _fma(wt * wt, tc[..., 3], acc_v)
+        acc_v = _fma(wt * wt, tc[..., -1], acc_v)
     return acc, acc_v, tw
 
 
@@ -120,6 +123,29 @@ def gather_model(indirect, geo, s_normal, s_depth, s_luma):
     live = valid & ~(tw < stencil.EPS)
     inv = 1.0 / tw.clamp_min(stencil.EPS)
     return torch.where(live[..., None], acc * inv[..., None], indirect)
+
+
+def disocc_model(color4, geo, moments, s_normal, s_depth, s_luma):
+    """K3 as csrc/eaw_disocclusion.cu computes it, in float32 torch."""
+    rgb = color4[..., :3].clamp_max(stencil.FIREFLY_CLAMP)
+    cv, hist = color4[..., 3], moments[..., 2]
+    valid = geo[..., 3] >= 1e-5
+    lum = torch.where(valid, m.luminance(rgb), math.inf)
+    s_d_base = geo[..., 3] * s_depth
+    inv_d = torch.where(s_d_base == 0, 0.0, LOG2E / torch.where(s_d_base == 0, 1.0, s_d_base))
+    inv_l = torch.tensor(LOG2E / s_luma, dtype=torch.float32).clamp_min(INV_L_MIN)
+    taps = [(dx, dy, dx, dy) for dy in range(-3, 4) for dx in range(-3, 4)]
+    col = torch.cat([rgb, moments[..., :2], torch.zeros_like(cv)[..., None]], -1)
+    acc, _, tw = _tap_model(col, geo, lum, None, taps, 3, s_normal, inv_d, inv_l,
+                            lambda dx, dy: 0.0)
+    live = ~(geo[..., 3] < 1e-5) & ~(hist >= stencil.SPATIAL_VARIANCE_THRESHOLD)
+    low = tw < stencil.EPS
+    inv = 1.0 / tw.clamp_min(stencil.EPS)
+    f_m = torch.where(low[..., None], 0.0, acc[..., 3:] * inv[..., None])
+    boost = stencil.SPATIAL_VARIANCE_THRESHOLD / hist.clamp_min(1e-5)
+    f_v = boost * (f_m[..., 1] - f_m[..., 0] * f_m[..., 0]).abs()
+    out_c = torch.where((live & ~low)[..., None], acc[..., :3] * inv[..., None], rgb)
+    return torch.cat([out_c, torch.where(live, f_v, cv)[..., None]], -1)
 
 
 def _inputs(case, seed=7):
@@ -180,6 +206,41 @@ def test_gather_tap_model_matches_plain(case):
     torch.testing.assert_close(got, want, **TOL)
 
 
+def _moments(case, seed=11):
+    """moments [H,W,3] (m1, m2 >= m1^2, history length): every history
+    shorter than 8 (every valid pixel blurred), or with "hist8" at least 8
+    (every pixel passes through)."""
+    rng = np.random.default_rng(seed)
+    m1 = rng.random((H, W), dtype=np.float32) * 2.0
+    m2 = m1 * m1 + rng.random((H, W), dtype=np.float32) * 0.5
+    hist = rng.integers(0, 8, (H, W)).astype(np.float32)
+    if case == "hist8":
+        hist += 8.0
+    return torch.from_numpy(np.stack([m1, m2, hist], -1))
+
+
+DISOCC_CASES = ["random", "s_normal0", "equal_luma", "background", "border0", "hist8", "tw0"]
+
+
+@pytest.mark.parametrize("case", DISOCC_CASES)
+def test_disocc_tap_model_matches_plain(case):
+    color4, geo = _inputs(case)
+    moments = _moments(case)
+    if case == "tw0":  # a zero normal meets every tap at ndot 0: tw = 0
+        geo[::3, ::2, :3] = 0.0
+    sig = _sigmas("eaw", case)
+    got = disocc_model(color4, geo, moments, *sig)
+    want = stencil.eaw_disocclusion_plain(color4, geo, moments, *sig)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, **TOL)
+    if case in ("hist8", "background"):  # every pixel passes through, clamped
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if case == "tw0":
+        zero = (geo[..., 3] >= 1e-5) & (geo[..., :3] == 0).all(-1)
+        assert bool(zero.any())
+        torch.testing.assert_close(got[zero], want[zero], rtol=0, atol=0)
+
+
 # ---- (b) the launch plans -------------------------------------------------
 
 
@@ -238,8 +299,15 @@ def test_gather_plan_covers_each_pixel_once(hw):
         _check_plan(stencil.gather_plan(*hw, dtype), *hw)
 
 
+@pytest.mark.parametrize("hw", PLAN_SHAPES, ids=[f"{h}x{w}" for h, w in PLAN_SHAPES])
+def test_disocc_plan_covers_each_pixel_once(hw):
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_plan(stencil.disocc_plan(*hw, dtype), *hw)
+
+
 def test_plans_refuse_what_the_kernels_cannot_take():
     assert stencil.stage_plan(0, 16, 3).grid == 0 and stencil.gather_plan(16, 0).grid == 0
+    assert stencil.disocc_plan(0, 0).grid == 0
     with pytest.raises(ValueError):
         stencil.stage_plan(8, 8, 0)
     big = stencil.TapPlan(grid=1, block=(32, 8), tiles_x=1, tiles_y=1, stride=1, tile=(32, 16),
@@ -250,6 +318,7 @@ def test_plans_refuse_what_the_kernels_cannot_take():
 
 
 @pytest.mark.parametrize("src, prefix, tile, rows, reach", [
+    ("eaw_disocclusion.cu", "K3", stencil.DISOCC_TILE, stencil.DISOCC_ROWS, stencil.DISOCC_REACH),
     ("eaw_stage.cu", "K4", stencil.STAGE_TILE, stencil.STAGE_ROWS, stencil.STAGE_REACH),
     ("spatial_gather.cu", "K5", stencil.GATHER_TILE, stencil.GATHER_ROWS, stencil.GATHER_REACH),
 ])
