@@ -1,6 +1,6 @@
-// The edge-aware tap of K3 eaw_disocclusion, K4 eaw_stage and K5
-// spatial_gather as the card computes it cheaply, and their staging of
-// image pixels into shared memory. K6 keeps the IEEE tap of eaw_common.cuh.
+// The edge-aware tap of K3 eaw_disocclusion, K4 eaw_stage, K5
+// spatial_gather and K6 eaw_pair as the card computes it cheaply, and the
+// staging of image pixels into shared memory of K3-K5.
 //
 // The tap. The reference weight of a tap is
 //   pow(max(ndot, 0), s_normal) * exp(-|d0 - d1| / (s_d_base * r))
@@ -20,8 +20,8 @@
 // (the reference's s_depth_r == 0 guard).
 //
 // Validity. A staged pixel outside the image is zero (cp.async's zero
-// fill, or a zero written), so its depth 0 fails `depth >= 1e-5` exactly as
-// the plain version's zero padding does; no tap tests bounds. An invalid
+// fill, or a zero written; K6 reads zeros there), so its depth 0 fails
+// `depth >= 1e-5` exactly as the plain version's zero padding does. An invalid
 // tap adds nothing because its exponent is -inf (and every other value it
 // is multiplied by, colour or moment, is finite): where the tap has a luma
 // term, its staged luminance is +inf (and inv_l is at least

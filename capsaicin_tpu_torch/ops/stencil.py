@@ -9,13 +9,15 @@ Buffers are [H,W,C] with channels last: color4 (r, g, b, variance), geo
 gather's indirect (r, g, b). A tap is valid where it lies inside the image
 and its depth is at least 1e-5. The plain versions zero-pad the image, so
 a pad tap has depth 0 and the depth test alone excludes it; K3, K4 and K5
-stage zeros for pixels outside the image and rely on that too, K6 tests
-the bounds explicitly. All compute what the planar TPU layout computes.
+stage zeros for pixels outside the image and K6 reads zeros there, and
+they rely on that too. All compute what the planar TPU layout computes.
 
 K3, K4 and K5 take their launch plan from `disocc_plan`, `stage_plan` and
 `gather_plan`: a block owns a tile of outputs (for K4, of one phase's
 sub-lattice of the stride) and stages the tile and its reach into shared
-memory.
+memory. K6 takes its plan from `pair_plan`: a block owns a tile of
+outputs and computes stage A over the region its stage-B taps reach into
+shared memory.
 
 Storage is float32, or bfloat16 under `eaw_bf16` (the TPU package's bf16
 planar storage): arithmetic is float32 either way, and every kernel and
@@ -43,8 +45,6 @@ EPS = 1e-8
 FIREFLY_CLAMP = 10.0
 SPATIAL_VARIANCE_THRESHOLD = 8.0
 _EAW_KW = (1.0, 2.0 / 3.0, 1.0 / 6.0)  # eaw_blur.hlsl:76
-EAW_TILE = 16  # csrc/eaw_common.cuh
-PAIR_SMEM_LIMIT = 48 * 1024  # K6's shared memory per block, without an opt-in
 # K3's, K4's and K5's tiles: outputs a block (columns, rows), outputs a
 # thread (one above the other), the reach in taps (K3_* in
 # csrc/eaw_disocclusion.cu, K4_* in csrc/eaw_stage.cu, K5_* in
@@ -53,6 +53,15 @@ DISOCC_TILE, DISOCC_ROWS, DISOCC_REACH = (32, 8), 2, 3
 STAGE_TILE, STAGE_ROWS, STAGE_REACH = (32, 16), 2, 2
 GATHER_TILE, GATHER_ROWS, GATHER_REACH = (32, 8), 2, 3
 TAP_SMEM_LIMIT = 48 * 1024  # K3-K5's dynamic shared memory a block, without an opt-in
+# K6 (csrc/eaw_pair.cu): threads a block (K6_THREADS), outputs a thread
+# (K6_ROWS, one stride apart in a column), the reach in taps (K6_R); its
+# region of stage A in shared memory, 20 B a pixel (the clamped colour and
+# variance, the luminance), under PAIR_SHARED_BUDGET (the opt-in above 48
+# KB; the card's limit a block is 227 KB, and what is left of the SM's 256
+# KB serves stage A's taps as L1)
+PAIR_THREADS, PAIR_ROWS, PAIR_REACH = 1024, 2, 2
+PAIR_BYTES_PER_PIXEL = 20
+PAIR_SHARED_BUDGET = 176 * 1024
 
 K3 = K.register(K.Kernel(
     "eaw_disocclusion", "eaw_disocclusion",
@@ -74,7 +83,8 @@ K5 = K.register(K.Kernel(
 ))
 K6 = K.register(K.Kernel(
     "eaw_pair", "eaw_pair",
-    [K.vp, K.vp, K.vp, K.i32, K.i32, K.i32, K.i32, K.i32, K.f32, K.f32, K.f32],
+    [K.vp, K.vp, K.vp, K.i32, K.i32, K.i32, K.i32, K.i32, K.f32, K.f32, K.f32, K.i32, K.i32,
+     K.i32, K.i32, K.i32],
     source="capsaicin_tpu_torch/csrc/eaw_pair.cu",
     replaces="capsaicin_tpu/ops/pallas_stencil.py:231",
 ))
@@ -280,6 +290,75 @@ def gather_plan(h: int, w: int, dtype=torch.float32) -> TapPlan:
                      32 + (8 if dtype == torch.bfloat16 else 0))
 
 
+@dataclasses.dataclass(frozen=True)
+class PairPlan:
+    """The launch of K6 on an [h, w] image at strides (stride_a,
+    stride_b): `grid` blocks of `threads`, block b owning the outputs
+    [x0, x0 + tile[0]) x [y0, y0 + tile[1]) with x0 = (b % tiles_x) *
+    tile[0], y0 = (b // tiles_x) * tile[1] (those in the image), and
+    computing stage A over the region [x0 - 2 stride_b, x0 + tile[0] + 2
+    stride_b) x (the same in y), `region` pixels, into `shared_bytes` of
+    dynamic shared memory. Each stage runs `items` (stage A, stage B)
+    items of PAIR_ROWS outputs (`pair_items`)."""
+
+    grid: int
+    threads: int
+    tiles_x: int
+    tiles_y: int
+    tile: tuple
+    region: tuple
+    strides: tuple
+    items: tuple
+    shared_bytes: int
+
+
+def pair_items(stride: int, nx: int, ny: int) -> int:
+    """The items of one of K6's passes over an nx x ny rectangle at
+    `stride` (k6_pass in csrc/eaw_pair.cu): for each of the stride**2
+    phases, ceil(nx / stride) lattice columns times the pairs of its
+    ceil(ny / stride) lattice rows."""
+    lx, ly = -(-nx // stride), -(-ny // stride)
+    return stride * stride * lx * (-(-ly // 2))
+
+
+@functools.lru_cache(maxsize=64)
+def pair_plan(h: int, w: int, stride_a: int, stride_b: int, sms: int) -> PairPlan:
+    """K6's launch on a card of `sms` SMs: the output tile (multiples of 4
+    from 4 to 128 on each axis) whose region fits PAIR_SHARED_BUDGET bytes
+    and which takes the fewest rounds of items a thread, counting a wave
+    of one block on each SM; ties to the larger tile. The region is
+    float32 in either storage type. Raises ValueError where no tile fits
+    (stride_b above 22) or a stride is below 1."""
+    if min(stride_a, stride_b) < 1:
+        raise ValueError(f"eaw_pair: strides ({stride_a}, {stride_b}) out of range")
+    best = None
+    for tx in range(4, 129, 4):
+        for ty in range(4, 129, 4):
+            nx, ny = tx + 4 * stride_b, ty + 4 * stride_b
+            if nx * ny * PAIR_BYTES_PER_PIXEL > PAIR_SHARED_BUDGET:
+                continue
+            items = (pair_items(stride_a, nx, ny), pair_items(stride_b, tx, ty))
+            blocks = -(-w // tx) * -(-h // ty)
+            cost = (-(-blocks // sms) * sum(-(-n // PAIR_THREADS) for n in items), -tx * ty)
+            if best is None or cost < best[0]:
+                best = (cost, tx, ty, nx, ny, items)
+    if best is None:
+        raise ValueError(f"eaw_pair: stride_b {stride_b}: no tile's region fits "
+                         f"{PAIR_SHARED_BUDGET} B of shared memory")
+    _, tx, ty, nx, ny, items = best
+    tiles_x, tiles_y = -(-w // tx), -(-h // ty)
+    return PairPlan(grid=tiles_x * tiles_y if h > 0 and w > 0 else 0, threads=PAIR_THREADS,
+                    tiles_x=tiles_x, tiles_y=tiles_y, tile=(tx, ty), region=(nx, ny),
+                    strides=(stride_a, stride_b), items=items,
+                    shared_bytes=nx * ny * PAIR_BYTES_PER_PIXEL)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SMs of card `device_index` (K6's plan counts its waves)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _checked(plan: TapPlan, name: str) -> TapPlan:
     if plan.shared_bytes > TAP_SMEM_LIMIT:
         raise ValueError(f"{name}: {plan.shared_bytes} B of shared memory a block, above "
@@ -289,16 +368,22 @@ def _checked(plan: TapPlan, name: str) -> TapPlan:
 
 def kernel_info(name: str, dtype=torch.float32, device_index: int = 0) -> dict:
     """K3's ("eaw_disocclusion"), K4's ("eaw_stage", the instance with the
-    variance, as the chain runs it) or K5's ("spatial_gather") build on a
-    card, from cudaFuncGetAttributes and the occupancy API at its plan's
-    shared memory: registers a thread, local (spilled) bytes a thread,
-    static and dynamic shared bytes a block, resident blocks and warps an
-    SM, SMs."""
+    variance, as the chain runs it), K5's ("spatial_gather") or K6's
+    ("eaw_pair", with the variance, at its 1080p plan for the pair (5, 7))
+    build on a card, from cudaFuncGetAttributes and the occupancy API at its
+    plan's shared memory: registers a thread, local (spilled) bytes a
+    thread, static and dynamic shared bytes a block, resident blocks and
+    warps an SM, SMs."""
     out = (ctypes.c_int * 6)()
     bf16 = int(dtype == torch.bfloat16)
-    if name == "eaw_stage":
-        plan = stage_plan(1, 1, 1, dtype)
-        err = K.call("eaw_stage_info", [K.i32, K.i32, K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
+    threads = None
+    if name in ("eaw_stage", "eaw_pair"):
+        if name == "eaw_stage":
+            plan = stage_plan(1, 1, 1, dtype)
+        else:
+            plan = pair_plan(1080, 1920, 5, 7, sm_count(device_index))
+            threads = plan.threads
+        err = K.call(f"{name}_info", [K.i32, K.i32, K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
                      bf16, 1, plan.shared_bytes, out, device_index)
     else:
         plan = (disocc_plan if name == "eaw_disocclusion" else gather_plan)(1, 1, dtype)
@@ -308,7 +393,8 @@ def kernel_info(name: str, dtype=torch.float32, device_index: int = 0) -> dict:
         raise RuntimeError(f"{name}_info: CUDA error {err}")
     info = dict(zip(("registers", "local_bytes", "shared_bytes", "dynamic_shared_bytes",
                      "ctas_per_sm", "sms"), out))
-    info["warps_per_sm"] = info["ctas_per_sm"] * plan.block[0] * plan.block[1] // 32
+    threads = threads or plan.block[0] * plan.block[1]
+    info["warps_per_sm"] = info["ctas_per_sm"] * threads // 32
     return info
 
 
@@ -364,7 +450,8 @@ def eaw_pair(color4, geo, stride_a: int, stride_b: int, use_variance: bool,
              s_normal, s_depth, s_luma):
     """K6 on CUDA tensors, its plain version on CPU tensors: the stage at
     stride_a, then the stage at stride_b on its output.
-    color4 [H,W,4], geo [H,W,4], of one storage type -> [H,W,4] in that type."""
+    color4 [H,W,4], geo [H,W,4], of one storage type -> [H,W,4] in that type.
+    Any H and W; raises ValueError where `pair_plan` refuses the strides."""
     if K.on_cpu(color4):
         return eaw_pair_plain(color4, geo, stride_a, stride_b, use_variance,
                               s_normal, s_depth, s_luma)
@@ -372,11 +459,11 @@ def eaw_pair(color4, geo, stride_a: int, stride_b: int, use_variance: bool,
     h, w = color4.shape[:2]
     _check_image(color4, "color4", 4, h, w, dev, dt)
     _check_image(geo, "geo", 4, h, w, dev, dt)
-    if min(stride_a, stride_b) < 1 or (EAW_TILE + 4 * stride_b) ** 2 * 16 > PAIR_SMEM_LIMIT:
-        raise ValueError(f"eaw_pair: strides ({stride_a}, {stride_b}) out of range")
+    plan = pair_plan(h, w, int(stride_a), int(stride_b), sm_count(dev.index))
     out = torch.empty_like(color4)
     K6.launch(dev, K.ptr(color4), K.ptr(geo), K.ptr(out), h, w, int(stride_a), int(stride_b),
               int(bool(use_variance)), float(s_normal), float(s_depth), float(s_luma),
+              plan.grid, plan.tile[0], plan.tile[1], plan.tiles_x, plan.shared_bytes,
               storage=dt)
     return out
 

@@ -21,7 +21,8 @@ in the order of the sub-packet's list and skips only blocks that hold no
 hit for it: the results are those of the whole sub-packet popping every
 block up to its cap, which is what the TPU kernel does. K11 is the cull
 alone: the candidate count of each sub-packet, which `balance_order` sorts
-by.
+by; on the card a block of 128 threads counts COUNT_GROUP sub-packets
+(`count_plan`), reading each box once for all of them.
 
 On the card K10 is a persistent grid (`launch_plan`): as many blocks of
 128 threads as are resident, each taking sub-packets from an atomic
@@ -96,6 +97,10 @@ SHARED_CEILING = 24_576
 # for each resident block, and a counter; the grid shrinks to stay under this
 SCRATCH_BUDGET = 1 << 32
 PAIRS_PER_CHUNK = 1 << 24  # sub-packets x blocks per cull of the plain versions
+# K11: the sub-packets a block of LANE threads counts together (K11_GROUP,
+# csrc/stream_count.cu); each thread reads every LANE-th box once for all
+# of them
+COUNT_GROUP = 8
 
 _RAYS = [K.vp, K.vp, K.f32, K.vp, K.vp]  # origins, dirs, tmin, tmax, boxes
 K10 = K.register(K.Kernel(
@@ -106,7 +111,7 @@ K10 = K.register(K.Kernel(
 ))
 K11 = K.register(K.Kernel(
     "stream_count", "stream_count",
-    _RAYS + [K.i32, K.i32, K.vp],
+    _RAYS + [K.i32, K.i32, K.i32, K.vp],
     source="capsaicin_tpu_torch/csrc/stream_count.cu",
     replaces="capsaicin_tpu/ops/stream.py:209",
 ))
@@ -366,6 +371,26 @@ def launch_plan(n_blocks: int, block_tris: int, n_rays: int, resident: int) -> d
     return {"grid": grid, "shared_bytes": SHARED_BYTES, "scratch_bytes": grid * per_block + 8}
 
 
+def count_plan(n_rays: int) -> int:
+    """K11's grid, from host ints only: one block of LANE threads for each
+    COUNT_GROUP sub-packets of the ceil(n_rays / LANE)."""
+    return -(-(-(-n_rays // LANE)) // COUNT_GROUP)
+
+
+@functools.lru_cache(maxsize=None)
+def count_kernel_info(device_index: int) -> dict:
+    """K11's build on a card, from cudaFuncGetAttributes and the occupancy
+    API: registers a thread, spilled bytes a thread, static shared bytes,
+    resident blocks of 128 threads (and warps) an SM, and the SMs."""
+    out = (ctypes.c_int * 5)()
+    err = K.call("stream_count_info", [ctypes.POINTER(ctypes.c_int), K.i32], out, device_index)
+    if err != 0:
+        raise RuntimeError(f"stream_count_info: CUDA error {err}")
+    info = dict(zip(("registers", "local_bytes", "shared_bytes", "ctas_per_sm", "sms"), out))
+    info["warps_per_sm"] = info["ctas_per_sm"] * WARPS
+    return info
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_info(device_index: int, any_hit: bool) -> dict:
     """K10's build on a card, from cudaFuncGetAttributes and the occupancy
@@ -390,7 +415,7 @@ def count_candidates(sbvh: StreamBVH, origins, dirs, tmin: float, tmax) -> torch
     _check(sbvh, origins, dirs, tmax)
     counts = torch.empty(-(-n // LANE), dtype=torch.int32, device=origins.device)
     K11.launch(origins.device, K.ptr(origins), K.ptr(dirs), float(tmin), K.ptr(tmax),
-               K.ptr(sbvh.boxes), n, sbvh.n_blocks, K.ptr(counts))
+               K.ptr(sbvh.boxes), n, sbvh.n_blocks, count_plan(n), K.ptr(counts))
     return counts
 
 

@@ -1,19 +1,20 @@
-"""K3's, K4's and K5's times on the inputs of a 1080p Cornell frame (the
-third after a reset, default options): K3 (`eaw_disocclusion`) on the
+"""K3's to K6's times on the inputs of a 1080p Cornell frame (the third
+after a reset, default options): K3 (`eaw_disocclusion`) on the
 denoiser's colour, geo and moments, K4 (`eaw_stage`, with the variance) at
-strides 1, 3, 5 and 7 on the denoiser's colour and geo, K5
-(`spatial_gather`) on the gather's full-resolution input and on the
-[540, 960] input of a `lowres_indirect` frame, each in float32 and in bf16
-storage, with a digest of each result and its max abs error against the
-plain version; then the `gi1080` and `gi1080_eaw_bf16` ms/frame. One JSON
-line. Each kernel has two times: `ms`, CUDA events around `--iters` calls
+strides 1, 3, 5 and 7 and K6 (`eaw_pair`, with the variance) at the pairs
+(1, 3) and (5, 7) on the denoiser's colour and geo, K5 (`spatial_gather`)
+on the gather's full-resolution input and on the [540, 960] input of a
+`lowres_indirect` frame, each in float32 and in bf16 storage, with a
+digest of each result and its max abs error against the plain version;
+then the `gi1080`, `gi1080_eaw_bf16` and `gi1080_eaw_fused1` ms/frame. One
+JSON line. Each kernel has two times: `ms`, CUDA events around `--iters` calls
 as the host issues them (as chip_smoke.py times every kernel), and
 `device_ms`, the same calls queued behind a spin of the device, so that a
 call's host overhead in the wrapper leaves no gap between launches.
 
 It uses only the stencil and session API that every version of the port
 since K5 has (`stencil.eaw_disocclusion`, `stencil.eaw_stage`,
-`stencil.spatial_gather`, their plain
+`stencil.eaw_pair`, `stencil.spatial_gather`, their plain
 versions, `pipeline.render_frame(collect_aux=True)`), so an A/B of two trees
 on one card runs it from each tree's root in turns (parent, change, change,
 parent) and compares the times:
@@ -41,26 +42,11 @@ from capsaicin_tpu_torch.render.settings import RenderOptions
 from capsaicin_tpu_torch.render.traversal import make_traversal
 from capsaicin_tpu_torch.scene import build_scene
 from capsaicin_tpu_torch.scene.procedural import cornell_box, make_camera
-from capsaicin_tpu_torch.tools.stream_times import cuda_ms, digest
+from capsaicin_tpu_torch.tools.stream_times import cuda_ms, device_ms, digest
 
 W, H = 1920, 1080
 STRIDES = (1, 3, 5, 7)
-SPIN_CYCLES = 10_000_000  # about 5 ms at 1.98 GHz: the host queues every call meanwhile
-
-
-def device_ms(fn, iters):
-    """Device ms of one call of `fn`: `iters` calls queued while the device
-    spins, CUDA events around them, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+PAIRS = ((1, 3), (5, 7))  # K6 under eaw_fused="1"
 
 
 def session(width=W, height=H, **options):
@@ -133,6 +119,9 @@ def main() -> int:
                          (x["color4"], x["geo"], x["moments"], *x["sig"]))}
     cases.update({f"k4_s{k}": (stencil.eaw_stage, stencil.eaw_stage_plain,
                                (x["color4"], x["geo"], k, True, *x["sig"])) for k in STRIDES})
+    cases.update({f"k6_p{a}{b}": (stencil.eaw_pair, stencil.eaw_pair_plain,
+                                  (x["color4"], x["geo"], a, b, True, *x["sig"]))
+                  for a, b in PAIRS})
     cases["k5_full"] = (stencil.spatial_gather, stencil.spatial_gather_plain,
                         (x["indirect"], x["full_geo"], *x["gsig"]))
     cases["k5_half"] = (stencil.spatial_gather, stencil.spatial_gather_plain,
@@ -151,7 +140,8 @@ def main() -> int:
             key = f"{name}_{'bf16' if dt == torch.bfloat16 else 'f32'}"
             result["kernels"][key] = entry
             print(f"{key}: {entry}", flush=True)
-    for label, options in (("gi1080", {}), ("gi1080_eaw_bf16", dict(eaw_bf16=True))):
+    for label, options in (("gi1080", {}), ("gi1080_eaw_bf16", dict(eaw_bf16=True)),
+                           ("gi1080_eaw_fused1", dict(eaw_fused="1"))):
         result["frame_ms"][label] = frame_ms(args.frames, **options)
         print(f"{label}: {result['frame_ms'][label]:.2f} ms/frame", flush=True)
     print(json.dumps(result))

@@ -19,9 +19,8 @@ Every kernel's time stands beside its bound: the largest of its bytes over
 and float32 rate) and its special-function operations (lg2, ex2, rcp,
 sqrt) over 16 a clock on each SM at the card's maximum SM clock; a time
 under 95% of it fails the run (an any-hit trace's bound counts the
-triangle tests up to each ray's first hit). It prints K1's, K3's, K4's,
-K5's, K7's and K10's registers, local and shared memory and resident
-warps.
+triangle tests up to each ray's first hit). It prints K1's, K3's to K7's,
+K10's and K11's registers, local and shared memory and resident warps.
 
     python3 chip_smoke.py
 
@@ -66,16 +65,31 @@ OPS_ATTR = 60  # K2: interpolation of P, N, UV and the normalisation
 # channel summed (r, g, b; K3's two moments; the variance's w^2 3) and 1
 # for the weight sum; MUFU: lg2 and ex2 a tap, and a pixel's reciprocals
 # (inv_d, 1/tw; inv_l where it is per pixel) and sqrt (the variance's
-# sigma). K6 still calls powf/expf: this is its function's work, not its
-# code's. K3's taps serve only the pixels it blurs (depth >= 1e-5, history
-# shorter than 8); the rest pass through.
+# sigma). K6's taps are those of its two stages on every pixel (its
+# recompute of stage A around each tile is its code's work, not its
+# function's). K3's taps serve only the pixels it blurs (depth >= 1e-5,
+# history shorter than 8); the rest pass through.
 TAP_OPS = {"eaw_disocclusion": 24, "eaw_stage": 24, "spatial_gather": 20, "eaw_pair": 24}
 MUFU_TAP = 2
 MUFU_PIXEL = {"eaw_disocclusion": 2, "eaw_stage": 4, "spatial_gather": 2, "eaw_pair": 8}
 OPS_MICROSTEP = 25  # K9: a box test and the step's arithmetic
 # K10/K11: interval slab test of one block box against a sub-packet's
-# bounds: 12 sub, 24 mul, 46 min/max, 4 compares (csrc/stream_count.cu)
-OPS_IBOX = 86
+# bounds, counted as the least work that gives the plain version's answer
+# for the boxes the stream build makes (faces ordered): per axis one
+# interval product of [lo - o_hi, hi - o_lo] and the inverse-direction
+# interval, 2 sub, 4 mul and, with the corners chosen by the signs of that
+# interval, 2 min/max; 2 min and 2 max merge the axes; 3 compares (the
+# first count was the plain version's 86: two products an axis, 46
+# min/max). A count alone (K11) needs less where every axis of the
+# sub-packet's inverse-direction interval straddles 0 and tcap0 >= 0: then
+# tn <= 0 <= tf holds, and tf >= tmin_lo decides: 2 sub, 2 mul and a max
+# an axis, 2 min, a compare. Where every ray of the sub-packet has one direction (i_lo ==
+# i_hi on every axis: the directional light's shadow rays), each extreme is
+# one product: 2 sub, 2 mul an axis, the merges and the compares, for K10's
+# cull too (csrc/stream_count.cu does these counts).
+OPS_IBOX = 31
+OPS_IBOX_STRADDLE = 18
+OPS_IBOX_POINT = 19
 STREAM_BLOCKS = (32, 64, 128)  # K10's block sizes timed (bench.py:129-139)
 STREAM_LARGE = 8  # the full colonnade at blocks of 8: 32,768 blocks
 SUBSAMPLE = 65_536  # rays of the colonnade's sets the plain walk takes
@@ -389,28 +403,35 @@ def compare_trace(session, report):
     report["hit_attributes"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain,
                                     **bound(n * OPS_ATTR, n * 64 + table.numel() * 4))
 
-    # K8 on the same rays and triangles (the brute-force packing is K1's);
-    # its any-hit stops at the first hit in index order, as K1's does
-    k8 = brute.brute_trace(acc, o, d, tmin, tmax, False)
-    k8p = brute.brute_trace_plain(acc.tris, o, d, tmin, tmax, False)
-    k8_err = hold_hits("K8 closest vs its plain version, Cornell primary", k8, k8p)
-    hold_hits("K8 closest vs K1, Cornell primary", k8, (t, u, v, prim), hits_only=True)
-    _, so, sd, stmin, stmax = calls[1]
-    hold_any("K8 any-hit vs its plain version, Cornell shadow",
-             brute.brute_trace(acc, so, sd, stmin, stmax, True),
-             brute.brute_trace_plain(acc.tris, so, sd, stmin, stmax, True))
-    k8_ms = cuda_ms(lambda: brute.brute_trace(acc, o, d, tmin, tmax, False), 20)
+    # K8 on the same four sets and triangles (the brute-force packing is
+    # K1's); its any-hit stops at the first hit in index order, as K1's
+    # does, so its bound is K1's: the tests the rays need
+    k8_err, k8_sets = 0.0, {}
+    for name, (kind, so, sd, stmin, stmax) in zip(("primary", "shadow", "bounce", "nee"), calls):
+        any_hit = kind == "any"
+        got = brute.brute_trace(acc, so, sd, stmin, stmax, any_hit)
+        want = brute.brute_trace_plain(acc.tris, so, sd, stmin, stmax, any_hit)
+        what = f"K8 {kind} vs its plain version, Cornell {name}"
+        if any_hit:
+            hold_any(what, got, want)
+            n_tests = float(any_tests[name].sum())
+        else:
+            k8_err = max(k8_err, hold_hits(what, got, want))
+            n_tests = float((stmax > stmin).sum()) * n_tris
+        if name == "primary":
+            hold_hits("K8 closest vs K1, Cornell primary", got, (t, u, v, prim), hits_only=True)
+        ms = cuda_ms(lambda: brute.brute_trace(acc, so, sd, stmin, stmax, any_hit), 20)
+        b = bound(n_tests * OPS_TRI, so.shape[0] * (28 + (1 if any_hit else 16)) + n_tris * 36)
+        k8_sets[name] = dict(ms=ms, **b)
+        print(f"K8 {kind} ({name}): {ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        check(ms >= 0.95 * b["bound_ms"],
+              f"K8 {kind} ({name}): {ms} ms below 95% of its bound {b['bound_ms']} ms")
     k8_plain = cuda_ms(lambda: brute.brute_trace_plain(acc.tris, o, d, tmin, tmax, False), 3)
-    k8_any = cuda_ms(lambda: brute.brute_trace(acc, so, sd, stmin, stmax, True), 20)
-    any_bound = bound(float(any_tests["shadow"].sum()) * OPS_TRI, n * 29 + n_tris * 36)
-    print(f"K8 closest {k8_ms:.4f} ms (plain {k8_plain:.4f} ms); any-hit {k8_any:.4f} ms, bound "
-          f"{any_bound['bound_ms']:.4f} ms (K1's test count)")
-    check(k8_any >= 0.95 * any_bound["bound_ms"],
-          f"K8 any-hit: {k8_any} ms below 95% of its bound {any_bound['bound_ms']} ms")
-    report["brute_trace"] = dict(max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_plain, any_ms=k8_any,
-                                 any_bound_ms=any_bound["bound_ms"],
-                                 **bound(float((tmax > tmin).sum()) * n_tris * OPS_TRI,
-                                         n * 44 + n_tris * 36))
+    print(f"K8 plain version, Cornell primary: {k8_plain:.4f} ms")
+    report["brute_trace"] = dict(max_abs_err=k8_err, plain_ms=k8_plain,
+                                 any_ms=k8_sets["shadow"]["ms"],
+                                 any_bound_ms=k8_sets["shadow"]["bound_ms"],
+                                 per_set=k8_sets, **k8_sets["primary"])
 
 
 def blurred(name, args):
@@ -528,7 +549,7 @@ def compare_stencils(session, report):
         if len(ms) > 1:  # per case: strides, pairs, or the gather's full and half resolution
             entry.update(case_ms=ms, case_plain_ms=plain_ms, case_bf16_ms=bf_ms,
                          case_bound_ms=[b["bound_ms"] for b in bounds])
-        if name in ("eaw_disocclusion", "eaw_stage", "spatial_gather"):
+        if name in ("eaw_disocclusion", "eaw_stage", "spatial_gather", "eaw_pair"):
             entry["build"] = {}
             for dt in (torch.float32, torch.bfloat16):
                 info = stencil.kernel_info(name, dt)
@@ -791,10 +812,10 @@ def hold_stream(what, sb, o, d, tmin, tmax, any_hit):
     return full, plain, sp, idx, plain_ms, err
 
 
-def stream_bound(sb, plain, n, tmin, tmax, any_hit):
-    """K10's bound on n rays from its plain version's work on a subsample
-    of whole sub-packets, scaled to all of them: the cull of each
-    sub-packet with a live ray (86 a box), a slab test (22) for each box
+def stream_bound(sb, plain, o, d, tmin, tmax, any_hit):
+    """K10's bound on the rays o, d from its plain version's work on a
+    subsample of whole sub-packets, scaled to all of them: the cull of each
+    sub-packet with a live ray (`cull_ops`), a slab test (22) for each box
     test, a Moller-Trumbore test (45) for each triangle test; the bytes of
     each input read once (the rays, 28 B; the box table and the triangle
     slots) and the results written once (16 B, any-hit 1 B)."""
@@ -802,21 +823,38 @@ def stream_bound(sb, plain, n, tmin, tmax, any_hit):
 
     from capsaicin_tpu_torch.ops import stream
 
+    n = o.shape[0]
     p = -(-n // stream.LANE)
     live_sp = int(torch.nn.functional.pad(tmax >= tmin, (0, p * stream.LANE - n))
                   .reshape(p, stream.LANE).any(1).sum())
     box_tests = float(plain["box_tests"].double().mean())
     tests = float(plain["tests"].double().mean())
-    cull_ops = live_sp * sb.n_blocks * OPS_IBOX
-    ops = cull_ops + p * (box_tests * OPS_BOX + tests * OPS_TRI)
+    cull = cull_ops(sb, o, d, tmin, tmax, False)
+    ops = cull + p * (box_tests * OPS_BOX + tests * OPS_TRI)
     nbytes = n * (28 + (1 if any_hit else 16)) + (sb.boxes.numel() + sb.tris.numel()) * 4
     work = dict(sub_packets=p, live_sub_packets=live_sp,
                 candidates_per_sub_packet=float(plain["candidates"].double().mean()),
                 pops_per_warp=float(plain["streamed"].double().mean()),
                 max_pops_per_warp=int(plain["streamed"].max()),
                 box_tests_per_sub_packet=box_tests, tests_per_sub_packet=tests,
-                cull_ops=cull_ops, ops=ops, bytes=nbytes)
+                cull_ops=cull, ops=ops, bytes=nbytes)
     return work, bound(ops, nbytes)
+
+
+def cull_ops(sb, o, d, tmin, tmax, count_only):
+    """The box tests' operations on a ray set: for each sub-packet with a
+    live ray, n_blocks tests of OPS_IBOX, OPS_IBOX_POINT where its rays
+    have one direction, and for a count alone (K11) OPS_IBOX_STRADDLE where
+    every axis straddles 0 and tcap0 >= 0."""
+    from capsaicin_tpu_torch.ops import stream
+
+    _, _, i_lo, i_hi, _, tcap0, live = stream._bounds(*stream._sub_packets(o, d, tmin, tmax))
+    point = (i_lo == i_hi).all(1) & live
+    straddle = ((i_lo < 0) & (i_hi > 0)).all(1) & (tcap0 >= 0) & live & bool(count_only)
+    n_point, n_straddle = int(point.sum()), int(straddle.sum())
+    n_rest = int(live.sum()) - n_point - n_straddle
+    return sb.n_blocks * (n_point * OPS_IBOX_POINT + n_straddle * OPS_IBOX_STRADDLE
+                          + n_rest * OPS_IBOX)
 
 
 def compare_stream(report, calls, tris, tree7):
@@ -848,6 +886,12 @@ def compare_stream(report, calls, tris, tree7):
               f"{info['ctas_per_sm']} blocks of 128 threads = {4 * info['ctas_per_sm']} warps "
               f"resident an SM on {info['sms']} SMs")
         report.setdefault("k10_build", {})["any_hit" if any_hit else "closest"] = info
+    k11_build = stream.count_kernel_info(0)
+    print(f"K11 build: {k11_build['registers']} registers a thread, {k11_build['local_bytes']} B "
+          f"local, {k11_build['shared_bytes']} B static shared memory a block, "
+          f"{k11_build['ctas_per_sm']} blocks = {k11_build['warps_per_sm']} warps resident an SM "
+          f"({stream.COUNT_GROUP} sub-packets a block)")
+    check(k11_build["local_bytes"] == 0, f"K11 uses {k11_build['local_bytes']} B of local memory")
     for b, sb in builds.items():
         plan = stream.launch_plan(sb.n_blocks, b, W * H, resident[False])
         print(f"colonnade stream blocks of {b}: {sb.n_blocks} blocks "
@@ -879,19 +923,23 @@ def compare_stream(report, calls, tris, tree7):
         check(torch.equal(counts, counts_plain), f"K11 ({name}): counts differ from the plain version's")
         check(torch.equal(counts[sp].long(), plain["candidates"]),
               f"K11 ({name}): counts differ from the plain trace's candidates")
+        large = builds[STREAM_LARGE]
+        check(torch.equal(stream.count_candidates(large, o, d, tmin, tmax),
+                          stream.stream_count_plain(large, o, d, tmin, tmax)),
+              f"K11 ({name}), blocks of {STREAM_LARGE}: counts differ from the plain version's")
         times = {b: cuda_ms(lambda sb=sb: stream.stream_trace(sb, o, d, tmin, tmax, any_hit), 3)
                  for b, sb in builds.items()}
         k7_ms = cuda_ms(lambda: bvh.bvh_trace(tree7, o, d, tmin, tmax, any_hit), 3)
-        k11_ms = cuda_ms(lambda: stream.count_candidates(acc, o, d, tmin, tmax), 5)
-        work, b32 = stream_bound(acc, plain, n, tmin, tmax, any_hit)
+        k11_ms = cuda_ms(lambda: stream.count_candidates(acc, o, d, tmin, tmax), 20)
+        work, b32 = stream_bound(acc, plain, o, d, tmin, tmax, any_hit)
         check(times[acc.block_tris] >= 0.95 * b32["bound_ms"],
               f"{what}: {times[acc.block_tris]} ms below 95% of its bound {b32['bound_ms']} ms")
         entry = dict(rays=n, live=int((tmax >= tmin).sum()), **work,
                      max_candidates=int(counts.max()), ms_by_block=times, k7_ms=k7_ms,
                      plain_ms=plain_ms, plain_rays=len(idx), count_ms=k11_ms,
                      count_plain_ms=count_plain_ms,
-                     count_bound=bound(work["cull_ops"], n * 28 + work["sub_packets"] * 4
-                                       + acc.boxes.numel() * 4),
+                     count_bound=bound(cull_ops(acc, o, d, tmin, tmax, True),
+                                       n * 28 + work["sub_packets"] * 4 + acc.boxes.numel() * 4),
                      **b32)
         if name == "bounce":  # the session balances this set
             bal = stream.stream_closest(acc, o, d, tmin, tmax, balance=True)
@@ -912,10 +960,15 @@ def compare_stream(report, calls, tris, tree7):
             order, _ = bvh.sort_rays_for_traversal(o, d, dead=tmax < tmin, dir_grid=4)
             oo, od, otm = o[order].contiguous(), d[order].contiguous(), tmax[order].contiguous()
             sorted_counts = stream.count_candidates(acc, oo, od, tmin, otm)
+            check(torch.equal(sorted_counts, stream.stream_count_plain(acc, oo, od, tmin, otm)),
+                  f"K11 ({name}, sorted): counts differ from the plain version's")
+            if not any_hit:  # the frame's own count: the sorted bounce set
+                entry["sorted_count_ms"] = cuda_ms(
+                    lambda: stream.count_candidates(acc, oo, od, tmin, otm), 20)
             entry["sorted_candidates_per_sub_packet"] = float(sorted_counts.double().mean())
             entry["sorted_max_candidates"] = int(sorted_counts.max())
             _, splain, _, _, _, _ = hold_stream(f"{what}, sorted", acc, oo, od, tmin, otm, any_hit)
-            swork, sbound = stream_bound(acc, splain, n, tmin, otm, any_hit)
+            swork, sbound = stream_bound(acc, splain, oo, od, tmin, otm, any_hit)
             entry["sorted"] = dict(swork, **sbound)
             entry["sorted_ms"] = cuda_ms(
                 lambda: stream.stream_trace(acc, oo, od, tmin, otm, any_hit), 3)
@@ -946,6 +999,8 @@ def compare_stream(report, calls, tris, tree7):
                  + (f", balanced {entry['sorted_balanced_ms']:.4f} ms"
                     if "sorted_balanced_ms" in entry else "")
                  + f"; the session's sort and trace {entry['session_trace_ms']:.4f} ms"
+                 + (f"; K11 on the sorted set (the frame's call) {entry['sorted_count_ms']:.4f} ms"
+                    if "sorted_count_ms" in entry else "")
                  if "sorted_ms" in entry else ""))
     mean = lambda key: sum(e[key] for e in per_set.values()) / len(per_set)  # noqa: E731
     report["stream_trace"] = dict(
@@ -956,7 +1011,8 @@ def compare_stream(report, calls, tris, tree7):
     report["stream_count"] = dict(
         max_abs_err=0.0, ms=mean("count_ms"), plain_ms=mean("count_plain_ms"),
         bound_ms=sum(e["count_bound"]["bound_ms"] for e in per_set.values()) / len(per_set),
-        bound_by=per_set["bounce"]["count_bound"]["bound_by"], library_ms=None)
+        bound_by=per_set["bounce"]["count_bound"]["bound_by"], library_ms=None,
+        frame_call_ms=per_set["bounce"]["sorted_count_ms"], build=k11_build)
 
 
 def compare_microstep(report):

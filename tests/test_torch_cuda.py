@@ -12,7 +12,9 @@ edges, t/u/v within 1e-5 where the ids agree, and K7 also bit-equal to
 its own walk's plain version (the ordered walk), on a persistent grid's
 edges too; the walk benchmark (K9)
 exactly; the stream traversal (K10, K11), which pops blocks in the order
-of its plain version, to hit ids and counts equal and t/u/v within 1e-5.
+of its plain version, to hit ids and counts equal and t/u/v within 1e-5;
+K11 also on the edges of its grouping of sub-packets. K6 also on images
+smaller than its tile and on the tap's edge cases.
 
 Marked `cuda`: each test skips, with the reason, where CUDA is unavailable
 (the decision is taken inside the fixture, never at import). On a machine
@@ -268,10 +270,14 @@ def test_static_trace_bit_equal_to_plain(dev, n_tris):
     assert int((want[3] >= 0).sum()) > 1000 and not bool((want[3][::9] >= 0).any())
 
 
-@pytest.mark.parametrize("strides", [(1, 3), (5, 7)])
+@pytest.mark.parametrize("strides", [(1, 3), (5, 7), (2, 9)])
 def test_eaw_pair_and_bf16_kernels(dev, strides):
-    """K6 against two plain stages, and the bf16 instances of K3, K4 and K6
-    against their bf16 plain versions."""
+    """K6 against two plain stages (the intermediate in float32) at an odd
+    size, on images smaller than its tile, of one pixel, of several tiles
+    with ragged edges, on the tap's edge cases, with and without the
+    variance, float32 and bf16, one launch a call; a stride_b its plan
+    refuses raises. And the bf16 instances of K3 and K4 against their bf16
+    plain versions."""
     h, w = 67, 129
     color4, geo, mom = _stencil_inputs(dev, h, w, strides[1])
     s = default_settings()
@@ -283,6 +289,20 @@ def test_eaw_pair_and_bf16_kernels(dev, strides):
         torch.testing.assert_close(
             got, stencil.eaw_pair_plain(color4, geo, *strides, use_variance, *sig),
             rtol=1e-3, atol=1e-4)
+    for hh, ww in ((1, 1), (5, 3), (4 * strides[1] - 1, 37), (131, 257)):
+        c0, g0, _ = _stencil_inputs(dev, hh, ww, hh * ww + strides[0])
+        for case in TAP_CASES:
+            c, g, cs = _tap_case(c0, g0, sig, case)
+            for use_variance in (True, False):
+                torch.testing.assert_close(
+                    stencil.eaw_pair(c, g, *strides, use_variance, *cs),
+                    stencil.eaw_pair_plain(c, g, *strides, use_variance, *cs),
+                    rtol=1e-3, atol=1e-4, msg=f"{hh}x{ww} {case} variance={use_variance}")
+            cb, gb = c.bfloat16(), g.bfloat16()
+            _bf16_close(stencil.eaw_pair(cb, gb, *strides, True, *cs),
+                        stencil.eaw_pair_plain(cb, gb, *strides, True, *cs))
+    with pytest.raises(ValueError):
+        stencil.eaw_pair(color4, geo, 1, 23, True, *sig)
     cb, gb, mb = color4.bfloat16(), geo.bfloat16(), mom.bfloat16()
     _bf16_close(stencil.eaw_pair(cb, gb, *strides, True, *sig),
                 stencil.eaw_pair_plain(cb, gb, *strides, True, *sig))
@@ -536,6 +556,69 @@ def test_stream_kernels(dev, block_tris):
             torch.testing.assert_close(a, plain[k], rtol=0, atol=1e-5)
         bal = stream.stream_closest(s.accel, o, d, tmin, tmax, balance=True)
         assert all(torch.equal(bal[k], x) for k, x in zip(("t", "u", "v", "prim"), got))
+
+
+def _sub_packet_rays(dev, rng, n):
+    """n rays on `dev` in sub-packets of 128: of every four, two fans from a
+    point in the colonnade's hall about one direction, a fan of level rays
+    and a scattered packet; every ninth ray dead, every fifth short (also
+    K11's model's rays in tests/test_torch_stream_plan.py)."""
+    o, d = [], []
+    for i in range(-(-n // 128)):
+        if i % 4 == 3:
+            o.append(rng.uniform([-15.0, 1.0, -7.0], [15.0, 6.0, 7.0], (128, 3)))
+            d.append(rng.normal(size=(128, 3)))
+        elif i % 4 == 2:  # level rays: the y directions straddle 0, x and z not
+            o.append(rng.uniform([-15.0, 1.0, -7.0], [15.0, 6.0, 7.0]) +
+                     rng.normal(scale=0.05, size=(128, 3)))
+            d.append(np.array([0.6, 0.0, 0.8]) + rng.normal(scale=0.1, size=(128, 3)))
+        else:
+            o.append(rng.uniform([-15.0, 1.0, -7.0], [15.0, 6.0, 7.0]) +
+                     rng.normal(scale=0.05, size=(128, 3)))
+            d.append(rng.normal(size=3) + rng.normal(scale=0.15, size=(128, 3)))
+    o, d = np.concatenate(o)[:n], np.concatenate(d)[:n]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.full(n, 1e6, np.float32)
+    tmax[::5] = rng.uniform(0.5, 8.0, len(tmax[::5]))
+    tmax[::9] = -1.0
+    return [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (o, d, tmax)]
+
+
+@pytest.mark.parametrize("case", ["ragged", "dead_sub_packet", "group_tail", "odd_blocks",
+                                  "blocks_32768", "unordered", "one_direction"])
+def test_stream_count_kernel_edges(dev, case):
+    """K11's counts torch.equal to its plain version's with N not a multiple
+    of 128, an all-dead sub-packet, a group of sub-packets cut short,
+    n_blocks not a multiple of the 128 threads that take the boxes, 32,768
+    blocks, valid boxes whose faces are not ordered (the plain test's
+    path) and rays of one direction (a directional light's shadow rays),
+    one launch a call."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    target, block_tris = (20_000, 1) if case == "blocks_32768" else (2000, 8)
+    scene = build_scene(colonnade(target_tris=target))
+    tris = np.stack([scene.tri_v0, scene.tri_v1, scene.tri_v2], 1).astype(np.float32)
+    sbvh = stream.build_stream_bvh(tris, block_tris, device=dev)
+    n = {"ragged": 128 * 9 + 37, "group_tail": 128 * 70 - 5, "blocks_32768": 384}.get(case, 1280)
+    o, d, tmax = _sub_packet_rays(dev, rng, n)
+    if case == "dead_sub_packet":
+        tmax[128 * 3: 128 * 4] = -1.0
+    if case == "one_direction":
+        d[:] = torch.tensor([0.3, 0.8, -0.52], device=dev)
+    if case == "odd_blocks":
+        nb = 128 * (sbvh.n_blocks // 128 - 1) + 77
+        sbvh = stream.StreamBVH(sbvh.boxes[:nb].contiguous(),
+                                sbvh.tris[: nb * block_tris].contiguous(), nb, block_tris)
+    if case == "unordered":
+        boxes = sbvh.boxes.clone()
+        valid = torch.nonzero(boxes[:, 3] > 0)[:, 0]
+        for ax, sel in ((1, valid[::7]), (2, valid[3::11])):
+            boxes[sel, ax], boxes[sel, 4 + ax] = boxes[sel, 4 + ax].clone(), boxes[sel, ax].clone()
+        sbvh = stream.StreamBVH(boxes, sbvh.tris, sbvh.n_blocks, block_tris)
+    before = stream.K11.launches
+    got = stream.count_candidates(sbvh, o, d, 0.0, tmax)
+    assert stream.K11.launches == before + 1
+    want = stream.stream_count_plain(sbvh, o, d, 0.0, tmax)
+    assert torch.equal(got, want) and int(want.sum()) > 0
 
 
 @pytest.mark.parametrize("target_tris,n_blocks", [(20_000, 1 << 15), (80_000, 1 << 17)])

@@ -17,7 +17,19 @@ exactly) and zero normals (tw = 0: the colour passes, the variance is 0).
 exactly one thread, every tap of a pixel lies in its block's staged tile,
 and the shared memory stays under the limit, at [1080,1920], [540,960],
 [67,129], [5,3] and [1,1] and strides 1, 3, 5, 7; the tiles match the
-constants of the CUDA sources."""
+constants of the CUDA sources.
+
+(c) K6 (csrc/eaw_pair.cu): a model of the pair as the kernel computes it
+(stage A with K4's tap over the region, its output kept in float32 and
+clamped, then stage B with the same tap on it; the tiling changes no
+value, since each output reads the region's stage-A values at its taps
+only) against `eaw_pair_plain` at rtol 1e-3 / atol 1e-4 in float32 and
+within the bf16 bars (max 2e-2, mean 1e-3) in bf16, at (1, 3), (5, 7) and
+stride_b 9; `pair_plan`: each region pixel is computed once by stage A,
+each output once by stage B, every stage-B tap lies in the region, at
+[1080,1920], [540,960], [67,129], [5,3], [1,1], for cards of 132, 114
+and 1 SMs; the plan refuses what the kernel cannot take; its constants
+match the CUDA source."""
 
 import math
 import os
@@ -327,3 +339,113 @@ def test_plan_tiles_match_the_cuda_sources(src, prefix, tile, rows, reach):
         defs = dict(re.findall(rf"#define {prefix}_(\w+) (\d+)", f.read()))
     assert (int(defs["TX"]), int(defs["TY"])) == tile
     assert (int(defs["ROWS"]), int(defs["R"])) == (rows, reach)
+
+
+# ---- (c) K6: the fused pair ------------------------------------------------
+
+
+def pair_model(color4, geo, stride_a, stride_b, use_variance, s_normal, s_depth, s_luma):
+    """K6 as csrc/eaw_pair.cu computes it: K4's tap in both stages, the
+    intermediate in float32 (clamped where the kernel stores it), the
+    result in the storage type of color4."""
+    c, g = color4.float(), geo.float()
+    mid = stage_model(c, g, stride_a, use_variance, s_normal, s_depth, s_luma)
+    mid = torch.cat([mid[..., :3].clamp_max(stencil.FIREFLY_CLAMP), mid[..., 3:]], -1)
+    out = stage_model(mid, g, stride_b, use_variance, s_normal, s_depth, s_luma)
+    return out.to(color4.dtype)
+
+
+PAIR_CASES = [("random", (1, 3), True, "f32"), ("random", (5, 7), True, "f32"),
+              ("random", (5, 7), False, "f32"), ("random", (2, 9), True, "f32"),
+              ("s_normal0", (1, 3), True, "f32"), ("border0", (5, 7), True, "f32"),
+              ("background", (1, 3), True, "f32"), ("random", (1, 3), True, "bf16"),
+              ("random", (5, 7), True, "bf16"), ("equal_luma", (5, 7), False, "bf16")]
+
+
+@pytest.mark.parametrize("case, strides, use_variance, storage", PAIR_CASES,
+                         ids=[f"{c}-{a}{b}-{'var' if v else 'novar'}-{t}"
+                              for c, (a, b), v, t in PAIR_CASES])
+def test_pair_model_matches_plain(case, strides, use_variance, storage):
+    color4, geo = _inputs(case)
+    if storage == "bf16":
+        color4, geo = color4.bfloat16(), geo.bfloat16()
+    sig = _sigmas("eaw", case)
+    got = pair_model(color4, geo, *strides, use_variance, *sig)
+    want = stencil.eaw_pair_plain(color4, geo, *strides, use_variance, *sig)
+    assert got.dtype == want.dtype == color4.dtype
+    assert bool(torch.isfinite(got.float()).all())
+    if storage == "bf16":
+        err = (got.float() - want.float()).abs()
+        assert float(err.max()) <= 2e-2 and float(err.mean()) <= 1e-3
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+    if case == "background":  # every pixel passes through, clamped
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _pass_outputs(stride, nx, ny):
+    """The first output (x, y) of every item of one of K6's passes over an
+    nx x ny rectangle (k6_pass / k6_item), items outside it dropped."""
+    lx = -(-nx // stride)
+    per_phase = stencil.pair_items(stride, nx, ny) // (stride * stride)
+    k = np.arange(stencil.pair_items(stride, nx, ny))
+    ph, r = k // per_phase, k % per_phase
+    x = ph % stride + stride * (r % lx)
+    y = ph // stride + 2 * stride * (r // lx)
+    keep = (x < nx) & (y < ny)
+    return x[keep], y[keep]
+
+
+def _check_pair_plan(plan, h, w):
+    sa, sb = plan.strides
+    (tx, ty), (nx, ny) = plan.tile, plan.region
+    assert (nx, ny) == (tx + 4 * sb, ty + 4 * sb)
+    assert plan.items == (stencil.pair_items(sa, nx, ny), stencil.pair_items(sb, tx, ty))
+    assert plan.shared_bytes == nx * ny * stencil.PAIR_BYTES_PER_PIXEL
+    assert plan.shared_bytes <= stencil.PAIR_SHARED_BUDGET
+    assert plan.threads == stencil.PAIR_THREADS and plan.threads <= 1024
+    # stage A: each region pixel once
+    x, y = _pass_outputs(sa, nx, ny)
+    xs = np.concatenate([x, x]), np.concatenate([y, y + sa])
+    keep = xs[1] < ny
+    count = np.bincount(xs[1][keep] * nx + xs[0][keep], minlength=nx * ny)
+    assert count.shape == (nx * ny,) and bool((count == 1).all()), "a region pixel not once"
+    # stage B: each output once over the blocks, its taps in the region
+    x, y = _pass_outputs(sb, tx, ty)
+    x, y = np.concatenate([x, x]), np.concatenate([y, y + sb])
+    keep = y < ty
+    x, y = x[keep], y[keep]
+    for dy in (-2, 2):  # the taps' rows; their columns x + 2 sb + sb dx lie in [0, nx)
+        assert bool(((y + 2 * sb + sb * dy >= 0) & (y + 2 * sb + sb * dy < ny)).all())
+    assert plan.tiles_x == -(-w // tx) and plan.tiles_y == -(-h // ty)
+    b = np.arange(plan.grid)
+    gx = ((b % plan.tiles_x) * tx)[:, None] + x[None]
+    gy = ((b // plan.tiles_x) * ty)[:, None] + y[None]
+    inside = (gx < w) & (gy < h)
+    count = np.bincount(gy[inside] * w + gx[inside], minlength=h * w)
+    assert count.shape == (h * w,) and bool((count == 1).all()), "an output pixel not once"
+
+
+@pytest.mark.parametrize("hw", PLAN_SHAPES, ids=[f"{h}x{w}" for h, w in PLAN_SHAPES])
+def test_pair_plan_covers_each_pixel_once(hw):
+    for strides in ((1, 3), (5, 7), (2, 9)):
+        for sms in (132, 114, 1):  # an H100 SXM's SMs, an H100 PCIe's, one
+            plan = stencil.pair_plan(*hw, *strides, sms)
+            assert plan.grid == plan.tiles_x * plan.tiles_y
+            _check_pair_plan(plan, *hw)
+
+
+def test_pair_plan_refuses_what_the_kernel_cannot_take():
+    assert stencil.pair_plan(0, 16, 1, 3, 132).grid == 0
+    for strides in ((0, 3), (1, 0), (1, 23)):
+        with pytest.raises(ValueError):
+            stencil.pair_plan(64, 64, *strides, 132)
+    big = stencil.pair_plan(1080, 1920, 1, 22, 132)  # the largest stride_b a tile fits
+    assert big.shared_bytes <= stencil.PAIR_SHARED_BUDGET
+
+
+def test_pair_constants_match_the_cuda_source():
+    with open(os.path.join(CSRC, "eaw_pair.cu")) as f:
+        defs = dict(re.findall(r"#define K6_(\w+) (\d+)", f.read()))
+    assert (int(defs["THREADS"]), int(defs["ROWS"]), int(defs["R"])) == (
+        stencil.PAIR_THREADS, stencil.PAIR_ROWS, stencil.PAIR_REACH)
