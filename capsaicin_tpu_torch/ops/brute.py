@@ -12,6 +12,8 @@ miss (not tmax, as K1 and K7 return). tmin is a scalar, tmax a scalar or
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import kernels as K
@@ -20,6 +22,8 @@ from .traverse import _mt_single
 
 MISS_T = 1e30
 TRI_BLOCK = 1024  # the oracle's triangle chunk
+BLOCK = 256  # K8's rays a block (BRUTE_BLOCK in csrc/brute_trace.cu)
+TILE = 256  # K8's triangles a tile in shared memory (BRUTE_TILE)
 PAIRS_PER_CHUNK = 1 << 22  # rays x triangles per step of the plain version
 
 K8 = K.register(K.Kernel(
@@ -66,6 +70,23 @@ def brute_trace_plain(tris, origins, dirs, tmin: float, tmax, any_hit: bool):
             best_v[rs] = torch.where(closer, v.gather(1, j)[:, 0], best_v[rs])
             best_p[rs] = torch.where(closer, (base + j[:, 0]).to(torch.int32), best_p[rs])
     return hit if any_hit else (best_t, best_u, best_v, best_p)
+
+
+def kernel_info(any_hit: bool, n_tris: int, device_index: int = 0) -> dict:
+    """K8's build on a card for a query and a scene size (a scene of at most
+    TILE triangles has its own instance, with no pipeline), as
+    `static.kernel_info` gives K1's: registers a thread, local (spilled)
+    bytes a thread, static and dynamic shared bytes a block, resident blocks
+    and warps an SM, SMs."""
+    out = (ctypes.c_int * 6)()
+    err = K.call("brute_trace_info", [K.i32, K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
+                 int(bool(any_hit)), int(n_tris), out, device_index)
+    if err != 0:
+        raise RuntimeError(f"brute_trace_info: CUDA error {err}")
+    info = dict(zip(("registers", "local_bytes", "shared_bytes", "dynamic_shared_bytes",
+                     "ctas_per_sm", "sms"), out))
+    info["warps_per_sm"] = info["ctas_per_sm"] * BLOCK // 32
+    return info
 
 
 def brute_trace(scene: StaticScene, origins, dirs, tmin: float, tmax, any_hit: bool):

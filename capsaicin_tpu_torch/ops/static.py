@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from .. import kernels as K
+from .traverse import _mt_single
 
 MAX_STATIC_TRIS = 128
 BLOCK = 256  # K1's rays a block (STATIC_BLOCK in csrc/static_trace.cu)
@@ -91,15 +92,36 @@ def static_trace_plain(tris, origins, dirs, tmin: float, tmax, any_hit: bool):
     return t_best, u, v, prim
 
 
+def first_hits(tris, origins, dirs, tmin: float, tmax):
+    """Each ray's first hit in index order, where an any-hit trace of K1, K8
+    or their plain versions stops: the triangle index, -1 for a miss or a
+    dead ray (tmax <= tmin). int64 [N]. The plain versions' arithmetic
+    (`traverse._mt_single`) over chunks of 1,024 triangles and about 2^22
+    pairs, so it serves scenes of any size."""
+    n, t_tot = origins.shape[0], tris.shape[0]
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=origins.device).expand(n)
+    first = torch.full((n,), -1, dtype=torch.int64, device=origins.device)
+    tb = max(1, min(1024, t_tot))
+    step = max(1, (1 << 22) // tb)
+    for r0 in range(0, n, step):
+        rs = slice(r0, min(n, r0 + step))
+        o, d, hi = origins[rs, None, :], dirs[rs, None, :], tmax[rs, None]
+        for base in range(0, t_tot, tb):
+            blk = tris[base:base + tb]
+            ok = _mt_single(o, d, blk[None, :, 0:3], blk[None, :, 3:6], blk[None, :, 6:9],
+                            tmin, hi)[3]
+            first[rs] = torch.where((first[rs] < 0) & ok.any(1), base + ok.int().argmax(1),
+                                    first[rs])
+    return first
+
+
 def any_hit_tests(tris, origins, dirs, tmin: float, tmax):
     """The triangle tests an any-hit trace in index order does per ray, as
-    the plain version and K1 stop: the index of the first hit plus 1,
+    the plain versions, K1 and K8 stop: the index of the first hit plus 1,
     n_tris for a miss, 0 for a dead ray (tmax <= tmin). int64 [N]."""
-    n = origins.shape[0]
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=origins.device).expand(n)
-    prim = static_trace_plain(tris, origins, dirs, tmin, tmax, any_hit=True)[3].long()
-    tests = torch.where(prim >= 0, prim + 1, tris.shape[0])
-    return torch.where(tmax > tmin, tests, 0)
+    first = first_hits(tris, origins, dirs, tmin, tmax)
+    live = torch.as_tensor(tmax, dtype=torch.float32, device=origins.device) > tmin
+    return torch.where(live, torch.where(first >= 0, first + 1, tris.shape[0]), 0)
 
 
 def kernel_info(any_hit: bool, device_index: int = 0) -> dict:

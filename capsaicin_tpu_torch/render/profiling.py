@@ -6,7 +6,8 @@ A kernel belongs to the pass whose profiler range (pipeline.PASS_NAMES)
 was open on the host when the kernel was launched; the trace ties each
 kernel to its launch by the CUPTI correlation id. Busy time is the union
 of the kernels' (and copies') intervals on the device, so overlapping
-work is not counted twice. Needs a CUDA session; run on a GPU:
+work is not counted twice; a pass takes the part of its kernels'
+intervals that no earlier device work covers. Needs a CUDA session; run on a GPU:
 
     python -m capsaicin_tpu_torch.render.profiling --width 1920 --height 1080 --frames 5
     python -m capsaicin_tpu_torch.render.profiling --scene colonnade --traversal bvh
@@ -40,19 +41,21 @@ def summarize_trace(events, frames: int, wall_ms: float, top: int = 15) -> dict:
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in spans
                  if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
 
+    # each device interval's part that no earlier one covers goes to the
+    # busy time and to the pass that launched it, so the passes add up to at
+    # most the busy time (the trace's rounding of its timestamps included)
     busy_us, end = 0.0, float("-inf")
-    for e in sorted(device, key=lambda e: e["ts"]):
-        start, stop = e["ts"], e["ts"] + e["dur"]
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-
     pass_us = dict.fromkeys(PASS_NAMES, 0.0)
     by_name = {}
-    for e in device:
+    for e in sorted(device, key=lambda e: e["ts"]):
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        own = max(0.0, stop - max(start, end))
+        busy_us += own
+        end = max(end, stop)
         ts = launch_ts.get(e.get("args", {}).get("correlation"))
         for lo, hi, name in ranges:
             if ts is not None and lo <= ts <= hi:
-                pass_us[name] += e["dur"]
+                pass_us[name] += own
                 break
         us, n = by_name.get(e["name"], (0.0, 0))
         by_name[e["name"]] = (us + e["dur"], n + 1)

@@ -16,6 +16,7 @@ prints one JSON line per variant: ns per packet-step, and the device.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 
 import torch
@@ -28,10 +29,11 @@ PACKET = 1024
 N_ROWS = 512
 LANES = 128
 STEPS = 4096
+RAYS_PER_THREAD = 8  # MS_RAYS in csrc/microstep.cu: a packet is 128 threads
 
 K9 = K.register(K.Kernel(
     "microstep", "microstep",
-    [K.vp, K.vp, K.i32, K.i32, K.i32, K.vp],
+    [K.vp, K.vp, K.i32, K.i32, K.i32, K.vp, K.vp],
     source="capsaicin_tpu_torch/csrc/microstep.cu",
     replaces="tools/microstep.py:32",
 ))
@@ -106,8 +108,27 @@ def microstep(variant: str, rays, nodes, steps: int = STEPS):
     K.check_cuda(rays, "rays", torch.float32, (p, 8, PACKET), dev)
     K.check_cuda(nodes, "nodes", torch.float32, (N_ROWS, LANES), dev, align=16)
     out = torch.empty((p, 1, 8, LANES), dtype=torch.float32, device=dev)
-    K9.launch(dev, K.ptr(rays), K.ptr(nodes), p, int(steps), VARIANTS.index(variant), K.ptr(out))
+    # each thread's count of steps with a hit, which keeps the tests of
+    # const, fetch and onehot in the program; not read
+    sink = torch.empty(p * PACKET // RAYS_PER_THREAD, dtype=torch.int32, device=dev)
+    K9.launch(dev, K.ptr(rays), K.ptr(nodes), p, int(steps), VARIANTS.index(variant), K.ptr(out),
+              K.ptr(sink))
     return out
+
+
+def kernel_info(variant: str, device_index: int = 0) -> dict:
+    """K9's build on a card for one variant, as `static.kernel_info` gives
+    K1's: registers a thread, local (spilled) bytes a thread, static and
+    dynamic shared bytes a block, resident blocks and warps an SM, SMs."""
+    out = (ctypes.c_int * 6)()
+    err = K.call("microstep_info", [K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
+                 VARIANTS.index(variant), out, device_index)
+    if err != 0:
+        raise RuntimeError(f"microstep_info: CUDA error {err}")
+    info = dict(zip(("registers", "local_bytes", "shared_bytes", "dynamic_shared_bytes",
+                     "ctas_per_sm", "sms"), out))
+    info["warps_per_sm"] = info["ctas_per_sm"] * PACKET // RAYS_PER_THREAD // 32
+    return info
 
 
 def step_times(ms: float, packets: int, steps: int) -> dict:

@@ -1,60 +1,40 @@
-"""Where the time of a kernel's first design goes, measured before its
-redesign: each is built again with one cost taken out or changed by a
-substitution in its source text, and every variant is timed on the inputs
-of a 1080p frame, with each variant's registers (`nvcc -Xptxas -v`) and
-its result's digest. One JSON line.
+"""Design runs of this tree's K6, K8, K9 and K11: each kernel is built
+again with other constants, or with one cost taken out, by a substitution
+in a copy of its source, and every variant is timed on the inputs of a
+1080p frame, with each variant's registers (`nvcc -Xptxas -v`) and its
+result's digest. One JSON line.
 
-- K1 (`static_trace.cu`, its first design) on the four ray sets of the
-  third 1080p Cornell frame (primary closest, direct shadow any-hit,
-  bounce closest, NEE any-hit): `rcp_approx` (the IEEE `1.0f / det` as an
-  approximate reciprocal), `vec_loads` (a triangle as three float4 reads
-  of shared memory, not nine scalars), `early_u` (leave a triangle once
-  det or u has failed: exact), `fmad` (built with --fmad=true), `all` (the
-  first three).
-- K3 (`eaw_disocclusion.cu`, its first design) on the denoiser's colour,
-  geo and moments in float32 and bf16: `intrinsics` (__powf, __expf,
-  __fdividef for the tap's transcendentals and divisions), `clamp_bounds`
-  (taps clamped into the image instead of skipped), `both`, `no_moments`
-  (the two moment sums left out).
-- K6 (`eaw_pair.cu`, its first design) on the denoiser's colour and geo at
-  the pairs (1, 3) and (5, 7), float32 and bf16: `intrinsics` (as K3's, in
-  the shared stage body), `centre_reads` (every tap of both stages reads
-  the centre pixel's colour and geo: what is left without the taps'
-  reads), `no_recompute` (stage A only on the tile's own 16x16 pixels, the
-  halo holding the input colour: what is left without the halo's
-  recompute), `no_stage_a` (the halo and tile hold the input colour: stage
-  B alone), `intrinsics_no_recompute`.
-- K11 (`stream_count.cu`, its first design) on the full colonnade's four
-  1080p ray sets of the third `colonnade_stream` frame and the frame's own
-  call (the bounce set in the 96-cell sorted order), blocks of 32 (8,192
-  boxes): `nan_ptx` (the NaN-propagating min and max as one `min.NaN.f32`
-  / `max.NaN.f32` each: exact), `no_test` (the box test replaced by one
-  compare of the loaded box: the box reads alone), `no_reads` (every
-  thread reads its boxes from a 128-box window that stays in L1: the test
-  without the table's reads from L2), `nan_ptx_no_reads`.
+- K6 (`k6d`) on the denoiser's colour and geo at the pairs (1, 3) and
+  (5, 7), float32 and bf16: 1,024, 768 or 512 threads a block (64, 85 or
+  128 registers), 512 threads two blocks an SM with a 100 KB region, 1,024
+  threads with a 220 KB region, each launched with the tile `design_plan`
+  chooses for its threads and region; and its split: `no_stage_a`,
+  `no_stage_b` (a stage left out), `a_reads_one_pixel` (stage A's taps all
+  read one pixel: no traffic beyond L1), `b_geo_one_pixel` (stage B's geo
+  taps likewise).
+- K11 (`k11d`) on the full colonnade's four 1080p ray sets of the third
+  `colonnade_stream` frame and the frame's own call (the bounce set in the
+  96-cell sorted order), blocks of 32: 4, 8 or 16 sub-packets a block, 2, 4
+  or 8 boxes a thread at once, 6 or 8 resident blocks an SM, the full test
+  where every axis straddles 0 (`no_straddle`) or where every ray has one
+  direction (`no_point`), and two splits: `no_boxes` (the bounds alone)
+  and `no_tests` (the bounds and the boxes' reads and loops, no test).
+- K8 (`k8d`) on the four ray sets of the third 1080p Cornell frame and on
+  the 65,536-ray subsamples of the full colonnade's four sets
+  (`tools/brute_times.py`): tiles of 256 (committed) or 128 triangles, 256
+  with at most 32 registers (8 blocks an SM), and `tiled` (a scene that
+  fits one tile, the Cornell box, takes the pipelined instance too).
+- K9 (`k9d`), its five variants at 64 packets x 4096 steps: 8 rays a
+  thread (committed), 4 or 16; `no_unroll` (the step loop not unrolled by
+  2); `both_records` (full reads both successors' records before the any()
+  and selects their floats after it); `no_test` (reduce's and full's box
+  tests replaced by one compare of the record: the chain without the
+  tests).
 
-Only `early_u` and `nan_ptx` keep the kernel's results; the rest are for
-timing. The substitutions match the texts of those designs, so point
-`--csrc` at the `capsaicin_tpu_torch/csrc` of a tree that has them, and
-pick its kernels with `--only`:
+All but the splits keep the kernels' results (the digests say so). The
+substitutions match this tree's sources:
 
-    python3 -m capsaicin_tpu_torch.tools.split_times --csrc PATH --only k6 k11 [--iters 20]
-
-Design runs of this tree's K6 and K11 (`--only k6d k11d`, `--csrc` this
-tree's): the same sources with other tile constants substituted, or with
-one cost taken out. K6 (`k6d`): 1,024, 768 or 512 threads a block (64, 85
-or 128 registers), 512 threads two blocks an SM with a 100 KB region,
-1,024 threads with a 220 KB region, each launched with the tile
-`design_plan` chooses for its threads and region; and its split:
-`no_stage_a`, `no_stage_b` (a stage left out), `a_reads_one_pixel` (stage
-A's taps all read one pixel: no traffic beyond L1), `b_geo_one_pixel`
-(stage B's geo taps likewise). K11 (`k11d`): 4, 8 or 16 sub-packets a
-block, 2, 4 or 8 boxes a thread at once, 6 or 8 resident blocks an SM,
-the full test where every axis straddles 0 (`no_straddle`) or where every
-ray has one direction (`no_point`), and two splits: `no_boxes` (the
-bounds alone) and `no_tests` (the bounds and the boxes' reads and loops,
-no test). All but the splits keep the kernels' results (the digests say
-so).
+    python3 -m capsaicin_tpu_torch.tools.split_times [--only k8d k9d] [--iters 20]
 
 GPU only. Builds under `capsaicin_tpu_torch/_build/split/`.
 """
@@ -76,88 +56,11 @@ from capsaicin_tpu_torch.tools.stencil_times import device_ms, session, stencil_
 from capsaicin_tpu_torch.tools.stream_times import digest, frame_rays
 
 NAMES = ("primary", "shadow", "bounce", "nee")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 
-K1_VEC = [
-    ("__shared__ float s_tris[STATIC_MAX_TRIS * 9];\n"
-     "  for (int i = threadIdx.x; i < n_tris * 9; i += blockDim.x) s_tris[i] = tris[i];",
-     "__shared__ float4 s_tris[STATIC_MAX_TRIS * 3];\n"
-     "  for (int i = threadIdx.x; i < n_tris * 9; i += blockDim.x)\n"
-     "    reinterpret_cast<float*>(s_tris)[(i / 3) * 4 + i % 3] = tris[i];"),
-    ("const float* tr = s_tris + 9 * k;\n"
-     "      const float v0x = tr[0], v0y = tr[1], v0z = tr[2];\n"
-     "      const float e1x = tr[3], e1y = tr[4], e1z = tr[5];\n"
-     "      const float e2x = tr[6], e2y = tr[7], e2z = tr[8];",
-     "const float4 ta = s_tris[3 * k], tb = s_tris[3 * k + 1], tc = s_tris[3 * k + 2];\n"
-     "      const float v0x = ta.x, v0y = ta.y, v0z = ta.z;\n"
-     "      const float e1x = tb.x, e1y = tb.y, e1z = tb.z;\n"
-     "      const float e2x = tc.x, e2y = tc.y, e2z = tc.z;"),
-]
-K1_RCP = [("det_ok ? 1.0f / det : 0.0f", "det_ok ? __fdividef(1.0f, det) : 0.0f")]
-K1_EARLY = [("const float uu = (tvx * px + tvy * py + tvz * pz) * inv_det;",
-             "const float uu = (tvx * px + tvy * py + tvz * pz) * inv_det;\n"
-             "      if (!(det_ok && uu >= 0.0f)) continue;")]
-K1_VARIANTS = {"parent": ([], []), "rcp_approx": (K1_RCP, []), "vec_loads": (K1_VEC, []),
-               "early_u": (K1_EARLY, []), "fmad": ([], ["--fmad=true"]),
-               "all": (K1_RCP + K1_VEC + K1_EARLY, [])}
-
-# K3's and K6's substitutions: (header (eaw_common.cuh) or source, old, new)
-K3_INTRINSICS = [
-    ("hdr", "const float nw = powf(ndot, s_normal);", "const float nw = __powf(ndot, s_normal);"),
-    ("hdr", "fabsf(c.w - t.w) / s_depth_r;", "__fdividef(fabsf(c.w - t.w), s_depth_r);"),
-    ("hdr", "return nw * expf(-d);", "return nw * __expf(-d);"),
-    ("src", "expf(-fabsf(cl - eaw_lum(tr, tgr, tb)) / s_luma)",
-     "__expf(__fdividef(-fabsf(cl - eaw_lum(tr, tgr, tb)), s_luma))"),
-]
-K3_CLAMP = [
-    ("src", "const int ty = y + dy;", "const int ty = min(max(y + dy, 0), height - 1);"),
-    ("src", "const int tx = x + dx;", "const int tx = min(max(x + dx, 0), width - 1);"),
-    ("src", "if (ty < 0 || ty >= height || tx < 0 || tx >= width) continue;\n", ""),
-]
-K3_NO_MOMENTS = [("src", "acc_m1 += w_full * eaw_load1(mom, 3 * t);", ""),
-                 ("src", "acc_m2 += w_full * eaw_load1(mom, 3 * t + 1);", "")]
-K3_VARIANTS = {"parent": [], "intrinsics": K3_INTRINSICS, "clamp_bounds": K3_CLAMP,
-               "both": K3_INTRINSICS + K3_CLAMP, "no_moments": K3_NO_MOMENTS}
-
-K6_INTRINSICS = K3_INTRINSICS[:3] + [
-    ("hdr", "expf(-fabsf(cl - eaw_lum(tr, tgr, tb)) / s_l_eff)",
-     "__expf(__fdividef(-fabsf(cl - eaw_lum(tr, tgr, tb)), s_l_eff))")]
-K6_CENTRE = [("hdr", "const float4 tg = eaw_load4(geo, ty * width + tx);",
-              "const float4 tg = eaw_load4(geo, y * width + x);"),
-             ("hdr", "const float4 tc = color_at(tx, ty);", "const float4 tc = color_at(x, y);")]
-K6_NO_RECOMPUTE = [("src", "if (gx >= 0 && gx < width && gy >= 0 && gy < height) {\n",
-                    "if (gx >= 0 && gx < width && gy >= 0 && gy < height) {\n"
-                    "      const int lx = i % span - halo, ly = i / span - halo;\n"
-                    "      if (lx < 0 || lx >= EAW_TILE || ly < 0 || ly >= EAW_TILE) {\n"
-                    "        eaw_mid[i] = col_at(gx, gy);\n"
-                    "        continue;\n"
-                    "      }\n")]
-K6_NO_STAGE_A = [("src", "eaw_mid[i] = eaw_stage_pixel(col_at, geo, gx, gy, height, width,\n"
-                  "                                   stride_a, use_variance, s_normal, s_depth,\n"
-                  "                                   s_luma);",
-                  "eaw_mid[i] = col_at(gx, gy);")]
-K6_VARIANTS = {"parent": [], "intrinsics": K6_INTRINSICS, "centre_reads": K6_CENTRE,
-               "no_recompute": K6_NO_RECOMPUTE, "no_stage_a": K6_NO_STAGE_A,
-               "intrinsics_no_recompute": K6_INTRINSICS + K6_NO_RECOMPUTE}
-
-# K11's: (header (stream_common.cuh) or source, old, new)
-K11_NAN_PTX = [
-    ("hdr", "return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);",
-     'float r;\n  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));\n  return r;'),
-    ("hdr", "return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);",
-     'float r;\n  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));\n  return r;'),
-]
-K11_NO_TEST = [("src", "count += box_candidate(b, __ldg(boxes + 2 * k), __ldg(boxes + 2 * k + 1), tn) ? 1 : 0;",
-                "const float4 lo = __ldg(boxes + 2 * k), hi = __ldg(boxes + 2 * k + 1);\n"
-                "      tn = lo.x + hi.x;\n"
-                "      count += (lo.w > 0.0f && tn <= b.tcap0) ? 1 : 0;")]
-K11_NO_READS = [("src", "__ldg(boxes + 2 * k), __ldg(boxes + 2 * k + 1)",
-                 "__ldg(boxes + 2 * (k & 127)), __ldg(boxes + 2 * (k & 127) + 1)")]
-K11_VARIANTS = {"parent": [], "nan_ptx": K11_NAN_PTX, "no_test": K11_NO_TEST,
-                "no_reads": K11_NO_READS, "nan_ptx_no_reads": K11_NAN_PTX + K11_NO_READS}
-
-# Design runs of this tree's K6 and K11: the same source with other tile
-# constants substituted, K6 launched with the tile `design_plan` gives its
-# threads and shared-memory budget, K11 with the grid of its group.
+# The same source with other tile constants substituted, or one cost taken
+# out: K6 launched with the tile `design_plan` gives its threads and
+# shared-memory budget, K11 with the grid of its group.
 # {variant: (substitutions, K6's (threads, budget) or K11's group)}
 
 
@@ -197,24 +100,45 @@ K11D_VARIANTS = {
     "g8_b4_m6": ([define("K11_MIN_BLOCKS", 8, 6)], 8),
 }
 
+# Design runs of this tree's K8 and K9
+K8D_VARIANTS = {
+    "t256": [],
+    "t128": [define("BRUTE_TILE", 256, 128)],
+    "t256_m8": [("src", "__global__ void __launch_bounds__(BRUTE_BLOCK) brute_trace_kernel(",
+                 "__global__ void __launch_bounds__(BRUTE_BLOCK, 8) brute_trace_kernel(")],
+    "tiled": [("src", "const bool one = n_tris <= BRUTE_TILE;", "const bool one = false;")],
+}
+K9D_TESTS = ("    bool hit = false;\n#pragma unroll\n    for (int j = 0; j < MS_RAYS; ++j)\n"
+             "      hit |= ms_aabb(b, ox[j], oy[j], oz[j], ix[j], iy[j], iz[j], tmin[j], t_best[j]);")
+K9D_VARIANTS = {
+    "r8": [],
+    "r4": [define("MS_RAYS", 8, 4)],
+    "r16": [define("MS_RAYS", 8, 16)],
+    "no_unroll": [("src", "#pragma unroll (VARIANT == 0 ? 1 : 2)\n", "")],
+    "both_records": [
+        ("src", "    const int rec_hit = ms_rec(k_hit), rec_miss = ms_rec(k_miss);",
+         "    float b_hit[MS_KEEP], b_miss[MS_KEEP];\n    ms_read(s_nodes, k_hit, b_hit);\n"
+         "    ms_read(s_nodes, k_miss, b_miss);"),
+        ("src", "      ms_read_rec(s_nodes, any_box ? rec_hit : rec_miss, b);",
+         "#pragma unroll\n      for (int c = 0; c < MS_KEEP; ++c) b[c] = any_box ? b_hit[c] : b_miss[c];")],
+    "no_test": [("src", K9D_TESTS, "    const bool hit = b[0] + b[1] < 0.0f;")],
+}
+
 # each kernel: its source, the header its variants change, {variant: (subs, extra flags)}
 KERNELS = {
-    "k1": ("static_trace.cu", None,
-           {n: ([("src", *sub) for sub in subs], flags) for n, (subs, flags) in K1_VARIANTS.items()}),
-    "k3": ("eaw_disocclusion.cu", "eaw_common.cuh", {n: (v, []) for n, v in K3_VARIANTS.items()}),
-    "k6": ("eaw_pair.cu", "eaw_common.cuh", {n: (v, []) for n, v in K6_VARIANTS.items()}),
-    "k11": ("stream_count.cu", "stream_common.cuh", {n: (v, []) for n, v in K11_VARIANTS.items()}),
     "k6d": ("eaw_pair.cu", None, {n: (v, []) for n, (v, _) in K6D_VARIANTS.items()}),
     "k11d": ("stream_count.cu", None, {n: (v, []) for n, (v, _) in K11D_VARIANTS.items()}),
+    "k8d": ("brute_trace.cu", None, {n: (v, []) for n, v in K8D_VARIANTS.items()}),
+    "k9d": ("microstep.cu", None, {n: (v, []) for n, v in K9D_VARIANTS.items()}),
 }
 
 K1_ARGS = [K.vp, K.vp, K.f32, K.vp, K.vp, K.i32, K.i32, K.i32, K.vp, K.vp, K.vp, K.vp, K.vp,
            K.i32, K.vp]
-K3_ARGS = [K.vp, K.vp, K.vp, K.vp, K.i32, K.i32, K.f32, K.f32, K.f32, K.i32, K.vp]
-K6_ARGS = [K.vp, K.vp, K.vp, K.i32, K.i32, K.i32, K.i32, K.i32, K.f32, K.f32, K.f32, K.i32, K.vp]
-K11_ARGS = [K.vp, K.vp, K.f32, K.vp, K.vp, K.i32, K.i32, K.vp, K.i32, K.vp]
-K6D_ARGS = K6_ARGS[:11] + [K.i32] * 5 + K6_ARGS[11:]
-K11D_ARGS = K11_ARGS[:7] + [K.i32] + K11_ARGS[7:]
+K6_ARGS = [K.vp, K.vp, K.vp, K.i32, K.i32, K.i32, K.i32, K.i32, K.f32, K.f32, K.f32,
+           K.i32, K.i32, K.i32, K.i32, K.i32, K.i32, K.vp]  # and the grid, tile and shared bytes
+K11_ARGS = [K.vp, K.vp, K.f32, K.vp, K.vp, K.i32, K.i32, K.i32, K.vp, K.i32, K.vp]
+K9_ARGS = [K.vp, K.vp, K.i32, K.i32, K.i32, K.vp, K.i32, K.vp]
+K9D_ARGS = K9_ARGS[:6] + [K.vp] + K9_ARGS[6:]  # and the scratch of the hits
 PAIRS = ((1, 3), (5, 7))
 
 
@@ -226,20 +150,28 @@ def substituted(text: str, subs) -> str:
     return text
 
 
-def build_variants(csrc: str, root: str, kernels) -> dict:
-    """{(kernel, variant): (library path, nvcc -Xptxas -v output)} for the
-    `kernels` named, every variant compiled at once."""
+def build_variants(csrc: str, root: str, kernels: dict) -> dict:
+    """{(kernel, variant): (library path, nvcc -Xptxas -v output)} for
+    `kernels` ({kernel: (source, header, {variant: (subs, flags)})}, as
+    KERNELS), every variant compiled at once. A variant's subs are ("src"
+    or "hdr", old, new); a third item after its flags names another
+    source of `csrc` to build as it is."""
     shutil.rmtree(root, ignore_errors=True)
     jobs = {}
-    for kernel in kernels:
-        src, hdr, variants = KERNELS[kernel]
+    for kernel, (src, hdr, variants) in kernels.items():
         with open(os.path.join(csrc, src)) as f:
             text = f.read()
         header = None
         if hdr is not None:
             with open(os.path.join(csrc, hdr)) as f:
                 header = f.read()
-        for name, (subs, flags) in variants.items():
+        for name, (subs, flags, *own) in variants.items():
+            vsrc = own[0] if own else src  # a variant may build another source as it is
+            if own:
+                with open(os.path.join(csrc, vsrc)) as f:
+                    text_v = f.read()
+            else:
+                text_v = text
             d = os.path.join(root, f"{kernel}_{name}")
             os.makedirs(d)
             for f in os.listdir(csrc):  # the headers the source includes
@@ -248,13 +180,13 @@ def build_variants(csrc: str, root: str, kernels) -> dict:
             if hdr is not None:  # the variant's own copy of the header
                 with open(os.path.join(d, hdr), "w") as f:
                     f.write(substituted(header, [s[1:] for s in subs if s[0] == "hdr"]))
-            with open(os.path.join(d, src), "w") as f:
-                f.write(substituted(text, [s[1:] for s in subs if s[0] == "src"]))
+            with open(os.path.join(d, vsrc), "w") as f:
+                f.write(substituted(text_v, [s[1:] for s in subs if s[0] == "src"]))
             lib = os.path.join(d, "lib.so")
             nvcc_flags = [f for f in K.NVCC_FLAGS if not f.startswith("--fmad")] + (
                 flags or ["--fmad=false"])
             cmd = [K.find_nvcc(), *nvcc_flags, "-Xptxas", "-v", "-shared", "-o", lib,
-                   os.path.join(d, src)]
+                   os.path.join(d, vsrc)]
             jobs[(kernel, name)] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                           stderr=subprocess.STDOUT, text=True))
     out = {}
@@ -270,8 +202,10 @@ def registers(log: str) -> list:
     return [int(r) for r in re.findall(r"Used (\d+) registers", log)]
 
 
-def time_k1(handle, calls, tris, iters, stream) -> dict:
-    fn = handle.static_trace
+def time_k1(handle, calls, tris, iters, stream, symbol="static_trace") -> dict:
+    """K1 (or K8, whose C entry point takes the same arguments) on the four
+    ray sets."""
+    fn = getattr(handle, symbol)
     fn.argtypes, fn.restype = K1_ARGS, K.i32
     entry = {}
     for set_name, (kind, o, d, tmin, tmax) in zip(NAMES, calls):
@@ -284,28 +218,9 @@ def time_k1(handle, calls, tris, iters, stream) -> dict:
                           n, tris.shape[0], any_hit, K.ptr(t), K.ptr(u), K.ptr(v),
                           K.ptr(prim), K.ptr(hit), 0, stream)
         if call() != 0:
-            raise RuntimeError("k1: launch failed")
+            raise RuntimeError(f"{symbol}: launch failed")
         entry[set_name] = {"ms": device_ms(call, iters),
                            "digest": digest(hit if any_hit else (t, u, v, prim))}
-    return entry
-
-
-def time_stencil(handle, symbol, argtypes, cases, iters, stream) -> dict:
-    """cases: {label: (inputs, extra C arguments)}, each in float32 and bf16."""
-    entry = {}
-    for dt in (torch.float32, torch.bfloat16):
-        fn = getattr(handle, symbol + K.STORAGE_SUFFIX[dt])
-        fn.argtypes, fn.restype = argtypes, K.i32
-        for label, (inputs, extra) in cases.items():
-            a = [x.to(dt).contiguous() for x in inputs]
-            out = torch.empty_like(a[0])
-            h, w = a[0].shape[:2]
-            call = lambda: fn(*map(K.ptr, a), K.ptr(out), h, w, *extra, 0, stream)  # noqa: E731
-            if call() != 0:
-                raise RuntimeError(f"{symbol}: launch failed")
-            key = f"{label}_{'bf16' if dt == torch.bfloat16 else 'f32'}"
-            entry[key] = {"ms": device_ms(call, iters),
-                          "digest": digest(out.view(torch.int16) if dt == torch.bfloat16 else out)}
     return entry
 
 
@@ -339,7 +254,7 @@ def time_k6_design(handle, x, threads, budget, iters, stream) -> dict:
     entry = {}
     for dt in (torch.float32, torch.bfloat16):
         fn = getattr(handle, "eaw_pair" + K.STORAGE_SUFFIX[dt])
-        fn.argtypes, fn.restype = K6D_ARGS, K.i32
+        fn.argtypes, fn.restype = K6_ARGS, K.i32
         c, g = x["color4"].to(dt).contiguous(), x["geo"].to(dt).contiguous()
         out = torch.empty_like(c)
         h, w = c.shape[:2]
@@ -374,64 +289,80 @@ def colonnade_sets():
     return s.accel, sets
 
 
-def time_k11(handle, sbvh, sets, iters, stream, group=None) -> dict:
-    """K11 on each set; `group`: this tree's K11 (its grid argument) with
-    that many sub-packets a block."""
+def time_k11(handle, sbvh, sets, iters, stream, group: int) -> dict:
+    """K11 on each set, built with `group` sub-packets a block."""
     fn = handle.stream_count
-    fn.argtypes, fn.restype = (K11_ARGS if group is None else K11D_ARGS), K.i32
+    fn.argtypes, fn.restype = K11_ARGS, K.i32
     entry = {}
     for name, (o, d, tmin, tmax) in sets.items():
         n = o.shape[0]
         counts = torch.empty(-(-n // 128), dtype=torch.int32, device="cuda")
-        grid = () if group is None else (-(-counts.shape[0] // group),)
+        grid = -(-counts.shape[0] // group)
         call = lambda: fn(K.ptr(o), K.ptr(d), tmin, K.ptr(tmax), K.ptr(sbvh.boxes),  # noqa: E731
-                          n, sbvh.n_blocks, *grid, K.ptr(counts), 0, stream)
+                          n, sbvh.n_blocks, grid, K.ptr(counts), 0, stream)
         if call() != 0:
             raise RuntimeError("k11: launch failed")
         entry[name] = {"ms": device_ms(call, iters), "digest": digest(counts)}
     return entry
 
 
+def time_k9(handle, iters, stream, packets=64, design=False) -> dict:
+    """K9's five variants at `packets` x 4096 steps; `design`: a build
+    with the scratch argument of this tree's K9."""
+    from capsaicin_tpu_torch.tools import microstep as msk
+
+    fn = handle.microstep
+    fn.argtypes, fn.restype = (K9D_ARGS if design else K9_ARGS), K.i32
+    rays, nodes = msk.make_inputs(packets, device="cuda")
+    out = torch.empty((packets, 1, 8, msk.LANES), device="cuda")
+    scratch = (K.ptr(torch.empty(packets * msk.PACKET, dtype=torch.int32, device="cuda")),) * design
+    entry = {}
+    for v, variant in enumerate(msk.VARIANTS):
+        call = lambda v=v: fn(K.ptr(rays), K.ptr(nodes), packets, msk.STEPS, v,  # noqa: E731
+                              K.ptr(out), *scratch, 0, stream)
+        if call() != 0:
+            raise RuntimeError("k9: launch failed")
+        entry[variant] = {"ms": device_ms(call, iters), "digest": digest(out)}
+    return entry
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--csrc", required=True, help="the csrc directory whose kernels to vary")
+    ap.add_argument("--csrc", default=CSRC, help="the csrc directory whose kernels to vary")
     ap.add_argument("--iters", type=int, default=20, help="timed calls after one warm-up")
-    ap.add_argument("--only", nargs="+", choices=tuple(KERNELS), default=("k1", "k3"),
+    ap.add_argument("--only", nargs="+", choices=tuple(KERNELS), default=tuple(KERNELS),
                     help="the kernels whose variants to build and time")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     libs = build_variants(os.path.abspath(args.csrc), os.path.join(K.BUILD_ROOT, "split"),
-                          args.only)
+                          {k: KERNELS[k] for k in args.only})
     stream = torch.cuda.current_stream().cuda_stream
     result = {"device": smi, **{k: {} for k in args.only}}
-    if {"k1", "k3", "k6", "k6d"} & set(args.only):
+    if {"k6d", "k8d"} & set(args.only):
         s = session()
         calls = frame_rays(s)
-        tris = s.accel.tris
         x = stencil_inputs(s)
-    if {"k11", "k11d"} & set(args.only):
+    if "k11d" in args.only:
         sbvh, sets = colonnade_sets()
+    if "k8d" in args.only:
+        from capsaicin_tpu_torch.tools.brute_times import colonnade_subsets
+
+        scene8, subsets = colonnade_subsets()
     for (kernel, name), (lib, log) in libs.items():
         handle = ctypes.CDLL(lib)
         entry = {"registers": registers(log)}
-        if kernel == "k1":
-            entry.update(time_k1(handle, calls, tris, args.iters, stream))
-        elif kernel == "k3":
-            entry.update(time_stencil(handle, "eaw_disocclusion", K3_ARGS,
-                                      {"full": ((x["color4"], x["geo"], x["moments"]), x["sig"])},
-                                      args.iters, stream))
-        elif kernel == "k6":
-            entry.update(time_stencil(handle, "eaw_pair", K6_ARGS,
-                                      {f"p{a}{b}": ((x["color4"], x["geo"]), (a, b, 1, *x["sig"]))
-                                       for a, b in PAIRS}, args.iters, stream))
+        if kernel == "k9d":
+            entry.update(time_k9(handle, args.iters, stream, design=True))
+        elif kernel == "k8d":
+            entry.update(time_k1(handle, calls, s.accel.tris, args.iters, stream, "brute_trace"))
+            colonnade = time_k1(handle, subsets, scene8.tris, 3, stream, "brute_trace")
+            entry.update({f"colonnade_{k}": v for k, v in colonnade.items()})
         elif kernel == "k6d":
             entry.update(time_k6_design(handle, x, *K6D_VARIANTS[name][1], args.iters, stream))
-        elif kernel == "k11d":
+        else:
             entry.update(time_k11(handle, sbvh, sets, args.iters, stream,
                                   group=K11D_VARIANTS[name][1]))
-        else:
-            entry.update(time_k11(handle, sbvh, sets, args.iters, stream))
         result[kernel][name] = entry
         print(f"{kernel} {name}: {entry}", flush=True)
     print(json.dumps(result))

@@ -2,25 +2,26 @@
 """Smoke test of the PyTorch/CUDA port (capsaicin_tpu_torch) on one NVIDIA
 GPU: builds the CUDA kernels from csrc/, holds each (and its bf16-storage
 instance) against its plain PyTorch version at the shapes of the 1080p
-frame (the small-scene trace, K1, bit-equal on the frame's four ray
-sets), holds the BVH walk (K7), the brute-force intersector (K8) and the
-stream traversal (K10, with its count pass K11) to their plain versions on
-the full colonnade's 1080p rays (K7 bit-equal to its walk's plain
-versions, its bound counted from the ordered walk) and K10 to K7 on all of
-them (K10 also at blocks of 8: 32,768 blocks), prints K7's and K10's
-registers, local and shared memory and resident warps, runs the
-walk microbenchmark (K9), renders the Cornell box at 1920x1080 with
-default options through the session API and checks that the frame went
-through every kernel, renders the other configurations of bench.py the
-same way (the colonnade through the BVH and through the stream at blocks
-of 32, 64 and 128), then holds small CUDA renders against the CPU path.
-Every kernel's time stands beside its bound: the largest of its bytes over
-3.35 TB/s, its float32 operations over 67 TFLOP/s (the H100 SXM's HBM rate
-and float32 rate) and its special-function operations (lg2, ex2, rcp,
-sqrt) over 16 a clock on each SM at the card's maximum SM clock; a time
-under 95% of it fails the run (an any-hit trace's bound counts the
-triangle tests up to each ray's first hit). It prints K1's, K3's to K7's,
-K10's and K11's registers, local and shared memory and resident warps.
+frame (the small-scene trace, K1, and the brute-force intersector, K8,
+bit-equal on the frame's four ray sets), holds the BVH walk (K7), K8 and
+the stream traversal (K10, with its count pass K11) to their plain
+versions on the full colonnade's 1080p rays (K7 bit-equal to its walk's
+plain versions, its bound counted from the ordered walk) and K10 to K7 on
+all of them (K10 also at blocks of 8: 32,768 blocks), times K8 on the
+colonnade's subsamples beside its bound, runs the walk microbenchmark (K9,
+its out exactly the plain walk's at 40 and 4096 steps), renders the
+Cornell box at 1920x1080 with default options through the session API and
+checks that the frame went through every kernel, renders the other
+configurations of bench.py the same way (the colonnade through the BVH
+and through the stream at blocks of 32, 64 and 128), then holds small CUDA
+renders against the CPU path. Every kernel's time stands beside its
+bound: the largest of its bytes over 3.35 TB/s, its float32 operations
+over 67 TFLOP/s (the H100 SXM's HBM rate and float32 rate) and its
+special-function operations (lg2, ex2, rcp, sqrt) over 16 a clock on each
+SM at the card's maximum SM clock; a time under 95% of it fails the run
+(an any-hit trace's bound counts the triangle tests up to each ray's first
+hit). It prints K1's and K3's to K11's registers, local and shared memory
+and resident warps.
 
     python3 chip_smoke.py
 
@@ -330,8 +331,8 @@ def compare_trace(session, report):
     bit-equal to its plain version on every ray, each set timed and bounded
     by the triangle tests it needs (closest: every live ray tests every
     triangle; any-hit: up to its first hit, `static.any_hit_tests`); K1's
-    builds; K2 and K8 against their plain versions on the primary and
-    shadow sets, K8's any-hit bounded as K1's."""
+    builds; K2 against its plain version on the primary hits; K8 bit-equal
+    to its plain version on the four sets, bounded as K1, and its builds."""
     import torch
 
     from capsaicin_tpu_torch.ops import brute, lookup, static
@@ -404,34 +405,46 @@ def compare_trace(session, report):
                                     **bound(n * OPS_ATTR, n * 64 + table.numel() * 4))
 
     # K8 on the same four sets and triangles (the brute-force packing is
-    # K1's); its any-hit stops at the first hit in index order, as K1's
-    # does, so its bound is K1's: the tests the rays need
-    k8_err, k8_sets = 0.0, {}
+    # K1's), bit-equal to its plain version; its any-hit stops at the first
+    # hit in index order, as K1's does, so its bound is K1's: the tests the
+    # rays need
+    k8_builds = {}
+    for any_hit in (False, True):
+        info = k8_builds["any_hit" if any_hit else "closest"] = brute.kernel_info(any_hit, n_tris)
+        print(f"brute_trace {'any-hit' if any_hit else 'closest'} build: {info['registers']} "
+              f"registers a thread, {info['local_bytes']} B local, {info['shared_bytes']} B static "
+              f"shared memory a block, {info['ctas_per_sm']} blocks = {info['warps_per_sm']} warps "
+              f"resident an SM")
+        check(info["local_bytes"] == 0, f"K8 uses {info['local_bytes']} B of local memory")
+    k8_sets = {}
     for name, (kind, so, sd, stmin, stmax) in zip(("primary", "shadow", "bounce", "nee"), calls):
         any_hit = kind == "any"
         got = brute.brute_trace(acc, so, sd, stmin, stmax, any_hit)
         want = brute.brute_trace_plain(acc.tris, so, sd, stmin, stmax, any_hit)
-        what = f"K8 {kind} vs its plain version, Cornell {name}"
         if any_hit:
-            hold_any(what, got, want)
+            mismatches = {"hit": int((got != want).sum())}
             n_tests = float(any_tests[name].sum())
         else:
-            k8_err = max(k8_err, hold_hits(what, got, want))
+            mismatches = {k: int((bits(a) != bits(b)).sum()) for k, a, b in zip("tuvp", got, want)}
             n_tests = float((stmax > stmin).sum()) * n_tris
+        print(f"K8 {kind} vs its plain version, Cornell {name}: {so.shape[0]} rays, "
+              f"mismatches {mismatches}")
+        check(not any(mismatches.values()), f"K8 {kind} ({name}): differs from its plain version")
         if name == "primary":
             hold_hits("K8 closest vs K1, Cornell primary", got, (t, u, v, prim), hits_only=True)
         ms = cuda_ms(lambda: brute.brute_trace(acc, so, sd, stmin, stmax, any_hit), 20)
         b = bound(n_tests * OPS_TRI, so.shape[0] * (28 + (1 if any_hit else 16)) + n_tris * 36)
-        k8_sets[name] = dict(ms=ms, **b)
-        print(f"K8 {kind} ({name}): {ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        k8_sets[name] = dict(ms=ms, mismatches=mismatches, **b)
+        print(f"K8 {kind} ({name}): {ms:.4f} ms (K1 {per_set[name]['ms']:.4f} ms), bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
         check(ms >= 0.95 * b["bound_ms"],
               f"K8 {kind} ({name}): {ms} ms below 95% of its bound {b['bound_ms']} ms")
     k8_plain = cuda_ms(lambda: brute.brute_trace_plain(acc.tris, o, d, tmin, tmax, False), 3)
     print(f"K8 plain version, Cornell primary: {k8_plain:.4f} ms")
-    report["brute_trace"] = dict(max_abs_err=k8_err, plain_ms=k8_plain,
+    report["brute_trace"] = dict(max_abs_err=0.0, plain_ms=k8_plain,
                                  any_ms=k8_sets["shadow"]["ms"],
                                  any_bound_ms=k8_sets["shadow"]["bound_ms"],
-                                 per_set=k8_sets, **k8_sets["primary"])
+                                 build=k8_builds, per_set=k8_sets, **k8_sets["primary"])
 
 
 def blurred(name, args):
@@ -614,9 +627,10 @@ def compare_stencils(session, report):
 def compare_bvh(report):
     """K7 on the full colonnade's 1080p rays (primary, direct shadow,
     bounce and NEE of the third frame): against its plain version and K8
-    on a subsample, against K7 over trees of other leaf sizes and through
-    the ray sort on all rays; its times at leaf 4, 8 and 32; and K2 on the
-    colonnade's 249,190-row table. Returns the four ray sets, the triangles
+    on a subsample (K8 also bit-equal to its plain version there), against
+    K7 over trees of other leaf sizes and through the ray sort on all rays;
+    its times at leaf 4, 8 and 32; and K2 on the colonnade's 249,190-row
+    table. Returns the four ray sets, the triangles
     and the leaf-4 tree, for compare_stream."""
     import torch
 
@@ -641,11 +655,20 @@ def compare_bvh(report):
         print(f"K7 {'any-hit' if any_hit else 'closest-hit'} build at depth {acc.depth}: {info}")
         check(info["local_bytes"] == 0, f"K7 uses {info['local_bytes']} B of local memory")
     scene8 = static.pack_triangles(tris)
+    k8_builds = {}
+    for any_hit in (False, True):  # the tiled instance (Cornell's fits one tile)
+        info = k8_builds["any_hit" if any_hit else "closest"] = brute.kernel_info(any_hit,
+                                                                                  scene8.n_tris)
+        print(f"brute_trace {'any-hit' if any_hit else 'closest'} build at {scene8.n_tris} "
+              f"triangles: {info['registers']} registers a thread, {info['local_bytes']} B local, "
+              f"{info['shared_bytes']} B static shared memory a block, {info['ctas_per_sm']} "
+              f"blocks = {info['warps_per_sm']} warps resident an SM")
+        check(info["local_bytes"] == 0, f"K8 uses {info['local_bytes']} B of local memory")
     names = ("primary", "shadow", "bounce", "nee")
     calls = frame_rays(session)
     check([c[0] for c in calls] == ["closest", "any", "closest", "any"],
           f"colonnade frame traces {[c[0] for c in calls]}")
-    errs, per_set = [], {}
+    errs, per_set, k8_colonnade = [], {}, {}
     for name, (kind, o, d, tmin, tmax) in zip(names, calls):
         any_hit = kind == "any"
         n = o.shape[0]
@@ -663,6 +686,32 @@ def compare_bvh(report):
               f"K7 {kind} ({name}): the four-wide walk's plain version differs from the binary")
         stackless = traverse.traverse(acc.host, so, sd, tmin, stm, any_hit, counts=True)
         k8 = brute.brute_trace(scene8, so, sd, tmin, stm, any_hit)
+        k8_ms = cuda_ms(lambda: brute.brute_trace(scene8, so, sd, tmin, stm, any_hit), 3)
+        # K8 bit-equal to its plain arithmetic on the subsample, across its
+        # tiles. Its work: every live ray tests every triangle; an any-hit
+        # ray those up to its first hit in index order
+        if any_hit:
+            first, k8_plain_ms = timed(lambda: static.first_hits(scene8.tris, so, sd, tmin, stm))
+            k8_same = torch.equal(k8, first >= 0)
+            k8_tests = float(torch.where(first >= 0, first + 1, scene8.n_tris)[stm > tmin].sum())
+        else:
+            k8_plain, k8_plain_ms = timed(lambda: brute.brute_trace_plain(
+                scene8.tris, so, sd, tmin, stm, False))
+            k8_same = all(map(torch.equal, k8, k8_plain))
+            k8_tests = float((stm > tmin).sum()) * scene8.n_tris
+        print(f"K8 {kind} on the colonnade's {len(idx)}-ray subsample ({name}) vs its plain "
+              f"version: bit-equal {k8_same} (the plain check took {k8_plain_ms:.1f} ms)")
+        check(k8_same, f"K8 {kind} (colonnade {name}): differs from its plain version")
+        k8_bound = bound(k8_tests * OPS_TRI,
+                         len(idx) * (28 + (1 if any_hit else 16)) + scene8.n_tris * 36)
+        print(f"K8 {kind} on the colonnade's {len(idx)}-ray subsample ({name}): {k8_ms:.3f} ms, "
+              f"{k8_tests / len(idx):.0f} triangle tests a ray, bound {k8_bound['bound_ms']:.4f} "
+              f"ms ({k8_bound['bound_by']})")
+        check(k8_ms >= 0.95 * k8_bound["bound_ms"],
+              f"K8 {kind} (colonnade {name}): {k8_ms} ms below 95% of its bound")
+        k8_colonnade[name] = dict(rays=len(idx), ms=k8_ms, plain_check_ms=k8_plain_ms,
+                                  tests_per_ray=k8_tests / len(idx),
+                                  **k8_bound)
         what = f"K7 {kind} ({name})"
         if any_hit:
             check(torch.equal(sub, full[idx]), f"{what}: the subsample's hits differ from the full run's")
@@ -746,6 +795,8 @@ def compare_bvh(report):
         bound_ms=mean("bound_ms"), bound_by=per_set["primary"]["bound_by"], library_ms=None,
         leaf_size=acc.leaf_size, build=builds[False], build_any_hit=builds[True],
         per_set=per_set)
+    report["brute_trace"]["colonnade_subsample"] = k8_colonnade
+    report["brute_trace"]["build_tiled"] = k8_builds
 
     # K2 on the colonnade's primary hits: the table is read from device memory
     table = session.shade.table
@@ -1016,8 +1067,9 @@ def compare_stream(report, calls, tris, tree7):
 
 
 def compare_microstep(report):
-    """K9's five variants: exactly its plain walk at 40 steps, then timed
-    at 64 packets x 4096 steps (the counts are its path's launches)."""
+    """K9's five variants: exactly its plain walk at 40 steps and at the
+    benchmark's 4096, timed at 64 packets x 4096 steps (the counts are its
+    path's launches); each variant's build."""
     import torch
 
     from capsaicin_tpu_torch import kernels as K
@@ -1025,10 +1077,18 @@ def compare_microstep(report):
 
     packets, steps = 64, msk.STEPS
     rays, nodes = msk.make_inputs(packets, device="cuda")
+    builds = {}
     for variant in msk.VARIANTS:
         check(torch.equal(msk.microstep(variant, rays, nodes, 40),
                           msk.microstep_plain(variant, rays, nodes, 40)),
-              f"K9 {variant}: out differs from the plain walk")
+              f"K9 {variant}: out differs from the plain walk at 40 steps")
+        info = builds[variant] = msk.kernel_info(variant)
+        print(f"microstep {variant} build: {info['registers']} registers a thread, "
+              f"{info['local_bytes']} B local, {info['dynamic_shared_bytes']} B dynamic shared "
+              f"memory a block, {info['ctas_per_sm']} blocks = {info['warps_per_sm']} warps "
+              f"resident an SM")
+        check(info["local_bytes"] == 0, f"K9 {variant} uses {info['local_bytes']} B of local memory")
+    outs = {variant: msk.microstep(variant, rays, nodes, steps) for variant in msk.VARIANTS}
     K.reset_counts()
     variants = {}
     for variant in msk.VARIANTS:
@@ -1036,15 +1096,19 @@ def compare_microstep(report):
         variants[variant] = dict(ms=ms, **msk.step_times(ms, packets, steps))
     launches = msk.K9.launches
     for variant in msk.VARIANTS:
-        variants[variant]["plain_ms"] = timed(
-            lambda v=variant: msk.microstep_plain(v, rays, nodes, steps))[1]
+        want, variants[variant]["plain_ms"] = timed(
+            lambda v=variant: msk.microstep_plain(v, rays, nodes, steps))
+        check(torch.equal(outs[variant], want),
+              f"K9 {variant}: out differs from the plain walk at {steps} steps")
         print(f"K9 {variant}: {variants[variant]['ms']:.4f} ms for {packets} packets x {steps} "
               f"steps = {variants[variant]['ns_per_step']:.3f} ns/step "
               f"({variants[variant]['ns_per_walk_step']:.2f} ns per step of one packet's walk); "
-              f"plain {variants[variant]['plain_ms']:.1f} ms")
+              f"plain {variants[variant]['plain_ms']:.1f} ms; out equal to the plain walk's at 40 "
+              f"and {steps} steps")
     full = variants["full"]
     report["microstep"] = dict(
         max_abs_err=0.0, ms=full["ms"], plain_ms=full["plain_ms"], variants=variants,
+        build=builds,
         **bound(packets * msk.PACKET * steps * OPS_MICROSTEP,
                 rays.numel() * 4 + nodes.numel() * 4 + packets * msk.PACKET * 4))
     return launches

@@ -10,8 +10,8 @@ least 8 and zero normals). K1 is held bit-equal to its plain version with
 are held to hit ids equal except at equal t (rtol 1e-4) or on triangle
 edges, t/u/v within 1e-5 where the ids agree, and K7 also bit-equal to
 its own walk's plain version (the ordered walk), on a persistent grid's
-edges too; the walk benchmark (K9)
-exactly; the stream traversal (K10, K11), which pops blocks in the order
+edges too; K8 also bit-equal to its plain version over several tiles of
+triangles; the walk benchmark (K9) exactly, at 50 and at 4096 steps; the stream traversal (K10, K11), which pops blocks in the order
 of its plain version, to hit ids and counts equal and t/u/v within 1e-5;
 K11 also on the edges of its grouping of sub-packets. K6 also on images
 smaller than its tile and on the tap's edge cases.
@@ -511,6 +511,50 @@ def test_microstep_kernel(dev, variant):
     got = microstep.microstep(variant, rays, nodes, 50)
     assert microstep.K9.launches == before + 1
     assert torch.equal(got, microstep.microstep_plain(variant, rays, nodes, 50))
+
+
+@pytest.mark.parametrize("variant", microstep.VARIANTS)
+def test_microstep_kernel_full_steps(dev, variant):
+    """K9 at the benchmark's 4096 steps: its walk wraps many times; out
+    exactly the plain walk's; no local memory."""
+    rays, nodes = microstep.make_inputs(2, seed=2, device=dev)
+    got = microstep.microstep(variant, rays, nodes, microstep.STEPS)
+    assert torch.equal(got, microstep.microstep_plain(variant, rays, nodes, microstep.STEPS))
+    info = microstep.kernel_info(variant, dev.index or 0)
+    assert info["local_bytes"] == 0, info
+
+
+@pytest.mark.parametrize("n_tris", [4978, 4975, 257])
+def test_brute_kernel_across_tiles(dev, n_tris):
+    """K8 bit-equal to its plain version (t, u, v, prim; the any-hit mask)
+    over several tiles of 256: the reduced colonnade with duplicates of 12
+    of its first 1,024 triangles appended (ties cross tiles), cut to
+    n_tris (the last tile padded, or one triangle past a tile), rays from
+    the hall and aimed at the duplicates (a count that is not a multiple of
+    the block), t_best starting at a hit's exact t and one ulp above it;
+    every ray dead; no local memory."""
+    from test_torch_brute_plan import colonnade_case, with_ties
+
+    packed, o, d, tmax = colonnade_case()
+    packed = packed[:n_tris]
+    scene = static.StaticScene(packed.to(dev))
+    for tm in (tmax, with_ties(packed, o, d, tmax), torch.full_like(tmax, -1.0)):
+        args = [x.to(dev) for x in (o, d)]
+        for any_hit, tmin in ((False, 0.0), (True, 1e-4)):
+            before = brute.K8.launches
+            got = brute.brute_trace(scene, *args, tmin, tm.to(dev), any_hit)
+            assert brute.K8.launches == before + 1
+            want = brute.brute_trace_plain(packed, o, d, tmin, tm, any_hit)
+            if any_hit:
+                assert torch.equal(got.cpu(), want)
+            else:
+                for a, b in zip(got, want):
+                    assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+                if tm is tmax:
+                    assert int((want[3] >= 0).sum()) > 300
+    for any_hit in (False, True):
+        info = brute.kernel_info(any_hit, n_tris, dev.index or 0)
+        assert info["local_bytes"] == 0 and info["warps_per_sm"] >= 32, info
 
 
 @pytest.mark.parametrize("block_tris", [32, 64])

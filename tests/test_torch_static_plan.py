@@ -1,4 +1,4 @@
-"""K1's prefilter (csrc/static_trace.cu), on the CPU.
+"""K1's prefilter (csrc/mt_test.cuh, which K1 and K8 run), on the CPU.
 
 K1 runs the plain version's exact Moller-Trumbore test only on the pairs
 that a division-free prefilter keeps: the numerators of u, v and t times an
@@ -26,10 +26,10 @@ from capsaicin_tpu_torch.ops import static
 from capsaicin_tpu_torch.scene import build_scene
 from capsaicin_tpu_torch.scene.procedural import cornell_box
 
-MARGIN = 2.0 ** -14  # STATIC_MARGIN
-TINY = np.float32(1e-30)  # STATIC_TINY
-SUM_HI = np.float32(1.0 + 2.0 ** -14)  # STATIC_SUM_HI
-DET_HI = np.float32(2.0 ** 126)  # STATIC_DET_HI
+MARGIN = 2.0 ** -14  # MT_MARGIN
+TINY = np.float32(1e-30)  # MT_TINY
+SUM_HI = np.float32(1.0 + 2.0 ** -14)  # MT_SUM_HI
+DET_HI = np.float32(2.0 ** 126)  # MT_DET_HI
 RCP_ERR = (-2.0 ** -22, 0.0, 2.0 ** -22)  # the ends of rcp.approx's error, and none
 
 
@@ -45,13 +45,13 @@ def _f32_down(x):
 
 
 def t_hi(t_best):
-    """static_t_hi: fmaf_ru(|t|, 2^-20, t), then + 1e-30 rounded up."""
+    """mt_t_hi: fmaf_ru(|t|, 2^-20, t), then + 1e-30 rounded up."""
     t = t_best.double()
     return _f32_up(_f32_up(t.abs() * 2.0 ** -20 + t).double() + float(TINY))
 
 
 def tmin_lo(tmin):
-    """static_tmin_lo, the host's bound below tmin."""
+    """mt_tmin_lo, the host's bound below tmin."""
     t = torch.tensor(float(np.float32(tmin)), dtype=torch.float64)
     return _f32_down(t - t.abs() * 2.0 ** -20 - 1e-30)
 
@@ -60,19 +60,27 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def rejects(det, un, vn, tn, tmin, t_best, rcp_err):
-    """(stage 1 rejects, stage 2 rejects) of the prefilter on float32
-    numerators, its reciprocal 1/det * (1 + rcp_err) rounded to float32 and
-    flushed to 0 below 2^-126, as rcp.approx.ftz returns it."""
+def prefilter(det, un, vn, tn, tmin, rcp_err):
+    """The prefilter on float32 numerators, its reciprocal 1/det * (1 +
+    rcp_err) rounded to float32 and flushed to 0 below 2^-126, as
+    rcp.approx.ftz returns it: (stage 1 rejects, stage 2 rejects whatever
+    t_best is, where the bound above t_best applies (|det| < 2^126), and
+    the approximate t's lower edge that is held against that bound)."""
     r = (1.0 / det.double() * (1.0 + rcp_err)).float()
     r = torch.where(r.abs() < 2.0 ** -126, 0.0 * r, r)  # .ftz: a subnormal result is 0
     au, av, at = un * r, vn * r, tn * r
     first = ~(det.abs() > 1e-12) | (au < -TINY)
-    second = (av < -TINY) | ((det.abs() < DET_HI) & (
-        (au + av > SUM_HI)
-        | (_fma(torch.full_like(at, MARGIN), at.abs(), at) < tmin_lo(tmin))
-        | (_fma(torch.full_like(at, -MARGIN), at.abs(), at) > t_hi(t_best))))
-    return first, second
+    small = det.abs() < DET_HI
+    second = (av < -TINY) | (small & (
+        (au + av > SUM_HI) | (_fma(torch.full_like(at, MARGIN), at.abs(), at) < tmin_lo(tmin))))
+    return first, second, small, _fma(torch.full_like(at, -MARGIN), at.abs(), at)
+
+
+def rejects(det, un, vn, tn, tmin, t_best, rcp_err):
+    """(stage 1 rejects, stage 2 rejects) of the prefilter on float32
+    numerators against t_best."""
+    first, second, small, at_lo = prefilter(det, un, vn, tn, tmin, rcp_err)
+    return first, second | (small & (at_lo > t_hi(t_best)))
 
 
 def exact_accepts(det, un, vn, tn, tmin, t_best):
