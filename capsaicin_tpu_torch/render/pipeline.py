@@ -9,6 +9,7 @@ value is read back to the host, so the caller decides when to wait.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Callable, NamedTuple
 
 import torch
@@ -26,6 +27,11 @@ PASS_NAMES = ("trace_primary", "direct_lighting", "indirect_gi", "spatial_gather
 
 def _span(name: str):
     return torch.profiler.record_function(name)
+
+
+def _timed(timer, name: str):
+    """timer(name), a per-pass timer of render.profiling, or nothing."""
+    return nullcontext() if timer is None else timer(name)
 
 
 class FrameState(NamedTuple):
@@ -91,26 +97,30 @@ def render_frame(
     collect_aux: bool = False,
     closest_bounce_fn: Callable = None,
     any_bounce_fn: Callable = None,
+    timer: Callable = None,
 ):
     """One full frame of the scene's ShadingScene (shading.shading_scene).
     closest_bounce_fn and any_bounce_fn, where given, trace the indirect
     pass's bounce and NEE shadow rays in place of closest_fn and any_fn.
-    Returns (display [H,W,3] gamma-encoded, new FrameState[, PassOutputs])."""
+    timer, where given, is entered around each pass under the reference's
+    timer name (render.profiling.PASS_NAMES; combine_taa holds two of
+    them, composite none). Returns (display [H,W,3] gamma-encoded, new
+    FrameState[, PassOutputs])."""
     frame_count = state.frame_count
     prev_camera = state.prev_camera
     prev_nd = {"oct": state.prev_nd_oct, "inst": state.prev_nd_inst, "depth": state.prev_nd_depth}
     combined_history = state.combined_history.float()
 
     # 1. primary visibility
-    with _span("trace_primary"):
+    with _span("trace_primary"), _timed(timer, "RaytracePrimaryVisibility"):
         gb = passes.trace_primary(closest_fn, camera, width, height, frame_count)
     # 2. direct lighting + gbuffer
-    with _span("direct_lighting"):
+    with _span("direct_lighting"), _timed(timer, "RT Direct lighting"):
         direct, albedo, nd = passes.direct_lighting(
             scene, any_fn, camera, gb, width, height, frame_count, options)
     # 3. indirect diffuse GI: options.spp sample sets, each with its own
     # blue-noise seed frame_count*spp + s, summed in order and averaged
-    with _span("indirect_gi"):
+    with _span("indirect_gi"), _timed(timer, "RT Indirect diffuse"):
         spp = max(int(options.spp), 1)
         indirect = None
         for s in range(spp):
@@ -124,28 +134,31 @@ def render_frame(
             indirect = indirect / spp
     # 4. spatial gather
     if options.gather:
-        with _span("spatial_gather"):
+        with _span("spatial_gather"), _timed(timer, "Spatial gather"):
             gathered = passes.spatial_gather(indirect, nd, frame_count, settings, options)
     else:
         gathered = indirect
     # shared temporal reprojection + history fetch (SVGF + TAA)
-    with _span("reproject"):
+    with _span("reproject"), _timed(timer, "Reproject history"):
         rep = passes.reproject_and_fetch_history(
             camera, prev_camera, nd, prev_nd, state.color_history.float(),
             state.moments_history.float(), combined_history, width, height)
     # 5. SVGF temporal accumulation
-    with _span("svgf_accumulate"):
+    with _span("svgf_accumulate"), _timed(timer, "Temporal upscale"):
         color_hist, moments_hist = passes.svgf_accumulate(
             gathered, nd, rep, prev_camera, width, height, frame_count,
             settings.temporal_upscale_feedback, options)
     # 6. EAW denoise chain
-    with _span("denoise"):
+    with _span("denoise"), _timed(timer, "EAW"):
         denoised = passes.denoise(color_hist, nd, moments_hist, settings, options)
     # 7. combine, 8. TAA -> new combined history
     with _span("combine_taa"):
-        combined = passes.combine(direct, denoised, albedo, options.output)
+        with _timed(timer, "Combine illumination"):
+            combined = passes.combine(direct, denoised, albedo, options.output)
         if options.taa:
-            combined_out = passes.taa(combined, rep, nd, width, height, settings.taa_feedback)
+            with _timed(timer, "TAA"):
+                combined_out = passes.taa(combined, rep, nd, width, height,
+                                          settings.taa_feedback)
         else:
             combined_out = combined
     # 9. composite: exposure + gamma for display; the history stays linear

@@ -1,22 +1,26 @@
 """RenderSession: the host-side orchestration of the port (the torch
 counterpart of capsaicin_tpu/render/session.py): device placement, scene
-upload, camera updates, the frame state and readback.
+upload and accumulation, camera updates, the frame state, its checkpoint,
+per-pass timings and readback.
 
-PyTorch runs eagerly, so there is no compile cache or variant
-precompilation: a frame is a sequence of kernel launches on the current
-stream, and `render_async` returns before the device has finished. An
-options change takes effect on the next frame.
+PyTorch runs eagerly, so there is no compile cache: a frame is a sequence
+of kernel launches on the current stream, and `render_async` returns
+before the device has finished. An options change takes effect on the
+next frame; `precompile_variants` builds the kernel library and runs a
+frame of each variant once, so that the first flip to it does not hitch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+import threading
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from .. import convert
+from .. import convert, kernels
 from ..ops.camera import Camera, camera_to, default_camera
 from ..scene import textures
 from . import pipeline, shading
@@ -55,12 +59,22 @@ class RenderSession:
         self.camera = camera_to(camera or default_camera(aspect=height / width), self.device)
         self.noise = torch.from_numpy(textures.blue_noise_256()).to(self.device)
         self.scene_dev = None
+        self.scene_host = None
         self.shade: Optional[shading.ShadingScene] = None
         self.accel = None
         self._trace = None
         self._sorted_trace = None
         self._sorted_shadow = None
         self.state: Optional[pipeline.FrameState] = None
+        self._timings: Dict[str, float] = {}
+        # the variants precompile_variants has run a frame of, since the
+        # last set_scene or resize
+        self._warm = set()
+        self._precompile_lock = threading.Lock()
+        self._bg_kick_lock = threading.Lock()
+        self._bg_thread = None
+        self._bg_pending = self._BG_IDLE
+        self.bg_served = None  # the last request the background worker took
 
     # -- scene ------------------------------------------------------------
 
@@ -85,7 +99,22 @@ class RenderSession:
             self._sorted_shadow = with_ray_sorting_any(any_hit)
         self.shade = shading.shading_scene(scene_dev)
         self.scene_dev = scene_dev
+        self.scene_host = scene
+        self._warm.clear()
         self.reset()
+
+    def add_scene(self, scene):
+        """Append another Scene's meshes to the session's geometry and
+        rebuild its acceleration structure: a repeated LoadSceneFromOBJ,
+        which adds to the reference's persistent pools
+        (asset_load_system.cpp:162-255, capsaicin.cpp:65-73). The first
+        call is set_scene. Resets accumulation, as set_scene does."""
+        from ..scene.scene import merge_scenes
+
+        if self.scene_host is None:
+            self.set_scene(scene)
+        else:
+            self.set_scene(merge_scenes(self.scene_host, scene))
 
     def set_camera(self, camera: Camera):
         self.camera = camera_to(camera, self.device)
@@ -126,6 +155,66 @@ class RenderSession:
                                             taa=False, num_diffuse_bounces=0))
         return list(dict.fromkeys(variants))
 
+    def precompile_variants(self, variants=None) -> int:
+        """Make the first frame of each variant (default: panel_variants())
+        as fast as the next: build the kernel library (a CUDA session),
+        then run one frame of every variant not run here before, from the
+        session's state, without advancing it. Returns how many variants
+        were new (0 on a repeat). Needs a scene."""
+        if self.shade is None:
+            raise RuntimeError("set_scene() first")
+        variants = self.panel_variants() if variants is None else variants
+        with self._precompile_lock:
+            if self.device.type == "cuda":
+                kernels.load()
+            n = 0
+            for opt in dict.fromkeys(variants):
+                if opt in self._warm:
+                    continue
+                state = self.state
+                if opt.history_dtype != self.options.history_dtype:
+                    state = pipeline.init_state(self.width, self.height, self.camera, opt)
+                self.frame(options=opt, state=state)
+                self._warm.add(opt)
+                n += 1
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return n
+
+    _BG_IDLE = object()  # no background request pending
+
+    def precompile_background(self, variants=None) -> threading.Thread:
+        """Build the kernel library on a daemon thread while the session
+        renders on: a frame there would race the render loop on the
+        device, so the frames of precompile_variants are left to the
+        caller's thread. Kicks coalesce onto one worker, which takes the
+        latest request (`bg_served`) until none is pending. Returns the
+        thread (join() to wait)."""
+        with self._bg_kick_lock:
+            self._bg_pending = variants
+            if self._bg_thread is not None:
+                return self._bg_thread
+
+            def worker():
+                while True:
+                    with self._bg_kick_lock:
+                        pending = self._bg_pending
+                        if pending is self._BG_IDLE:
+                            # retire inside the lock: a kick that saw a
+                            # live worker is sure to be taken
+                            self._bg_thread = None
+                            return
+                        self._bg_pending = self._BG_IDLE
+                    with self._precompile_lock:
+                        if self.device.type == "cuda":
+                            kernels.load()
+                        self.bg_served = pending
+
+            t = threading.Thread(target=worker, daemon=True)
+            self._bg_thread = t
+            t.start()
+            return t
+
     def resize(self, width: int, height: int):
         """Change the resolution, refitting the camera sensor's height to
         the new aspect (camera_system.cpp:10-17), and reset accumulation."""
@@ -134,9 +223,28 @@ class RenderSession:
         self.width, self.height = width, height
         s0 = self.camera.sensor_size[0]
         self.camera = self.camera._replace(sensor_size=torch.stack([s0, s0 * height / width]))
+        self._warm.clear()
         self.reset()
 
     # -- frame ------------------------------------------------------------
+
+    def frame(self, options: Optional[RenderOptions] = None, state=None, timer=None):
+        """Queue one frame from `state` (default: the session's) with
+        `options` (default: the session's) and the session's camera;
+        returns (display, next FrameState) and leaves the session as it
+        was. timer: pipeline.render_frame's per-pass timer hook."""
+        if self.shade is None:
+            raise RuntimeError("set_scene() first")
+        options = self.options if options is None else options
+        closest, any_hit = self._trace
+        bounce = bounce_any = None
+        if self._sorted_trace is not None and options.sort_bounce_rays:
+            bounce, bounce_any = self._sorted_trace
+            any_hit = self._sorted_shadow or any_hit
+        return pipeline.render_frame(
+            self.shade, closest, any_hit, self.camera, self.state if state is None else state,
+            self.settings, self.noise, self.width, self.height, options,
+            closest_bounce_fn=bounce, any_bounce_fn=bounce_any, timer=timer)
 
     def render_async(self, camera: Optional[Camera] = None) -> torch.Tensor:
         """Queue one frame and advance the state without waiting for the
@@ -145,15 +253,7 @@ class RenderSession:
             raise RuntimeError("set_scene() first")
         if camera is not None:
             self.set_camera(camera)
-        closest, any_hit = self._trace
-        bounce = bounce_any = None
-        if self._sorted_trace is not None and self.options.sort_bounce_rays:
-            bounce, bounce_any = self._sorted_trace
-            any_hit = self._sorted_shadow or any_hit
-        display, self.state = pipeline.render_frame(
-            self.shade, closest, any_hit, self.camera, self.state, self.settings,
-            self.noise, self.width, self.height, self.options,
-            closest_bounce_fn=bounce, any_bounce_fn=bounce_any)
+        display, self.state = self.frame()
         return display
 
     def render_loop(self, frames: int, camera: Optional[Camera] = None, chunk: int = 16,
@@ -181,8 +281,57 @@ class RenderSession:
 
     def render(self, camera: Optional[Camera] = None) -> np.ndarray:
         """Render one frame, advance the state, return the display image
-        [H,W,3] as a numpy array."""
-        return self.render_async(camera).cpu().numpy()
+        [H,W,3] as a numpy array. Its host seconds up to the finished
+        frame, before the readback, go to timings["frame"]."""
+        t0 = time.perf_counter()
+        display = self.render_async(camera)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._timings["frame"] = time.perf_counter() - t0
+        return display.cpu().numpy()
+
+    # -- observability ----------------------------------------------------
+
+    @property
+    def timings(self) -> Dict[str, float]:
+        """The last render()'s host seconds under "frame", as the
+        reference's named timestamp table (render_system.cpp:271-281)."""
+        return dict(self._timings)
+
+    def measure_pass_timings(self, iters: int = 3, method: str = "inframe") -> Dict[str, float]:
+        """Seconds of each pass under the reference's timer names, and of
+        the whole frame (render.profiling.measure_pass_timings): "inframe"
+        times the passes of one frame with CUDA events, "isolated" syncs
+        around each pass. The state does not advance."""
+        from . import profiling
+
+        return profiling.measure_pass_timings(self, iters=iters, method=method)
+
+    # -- checkpoint / resume ----------------------------------------------
+
+    def save_state(self, path: str):
+        """Write the temporal state (histories, previous G-buffer, previous
+        camera as cam_0.., frame counter) to an .npz with the JAX
+        package's keys, shapes and dtypes, so either package resumes it."""
+        st = convert.state_to_numpy(self.state)
+        np.savez_compressed(
+            path,
+            **{f: getattr(st, f) for f in pipeline.FrameState._fields
+               if f not in ("prev_camera", "frame_count")},
+            frame_count=np.asarray(st.frame_count, np.int32),
+            **{f"cam_{i}": np.asarray(x, np.float32) for i, x in enumerate(st.prev_camera)},
+        )
+
+    def load_state(self, path: str):
+        """Resume the temporal state that save_state (of either package) wrote."""
+        with np.load(path) as data:
+            st = {f: data[f] for f in data.files}
+        cam = Camera(*[st[f"cam_{i}"] for i in range(len(Camera._fields))])
+        self.state = convert.state_from_numpy(
+            pipeline.FrameState(**{f: st[f] for f in pipeline.FrameState._fields
+                                   if f not in ("prev_camera", "frame_count")},
+                                prev_camera=cam, frame_count=st["frame_count"]),
+            self.device)
 
     def save_png(self, path: str, image: Optional[np.ndarray] = None):
         from PIL import Image

@@ -1,12 +1,14 @@
-"""The procedural Cornell boxes (plain and textured), their textures, the
-colonnade and the camera presets: the parts of
-capsaicin_tpu/scene/procedural.py that the renderer's configurations use,
-built with numpy and torch only."""
+"""The procedural scenes of capsaicin_tpu/scene/procedural.py, built with
+numpy and torch only: the Cornell boxes (plain and textured) and their
+textures, the colonnade and its textured form, the camera presets, and
+`write_obj`, which writes any mesh list as OBJ + MTL for the ingest path
+(the same bytes as the JAX package's)."""
 
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+import os
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -198,6 +200,67 @@ def colonnade(target_tris: int = 250_000, seed: int = 42) -> List[MeshData]:
         meshes.append(_uv_sphere(f"sphere{placed}", m_stone, (x, y, z), r, 48, 48))
         placed += 1
     return meshes
+
+
+def colonnade_textured(target_tris: int = 250_000, seed: int = 42
+                       ) -> Tuple[List[MeshData], dict]:
+    """The colonnade with three materials, two of them textured: a checker
+    on the floor and walls, stripes on the spheres, plain stone on the
+    beams and columns. The stress case of the OBJ/MTL/PNG ingest
+    (asset_load_system.cpp:40-160), as the reference viewer's sponza.obj
+    (src/viewer/main.cpp:88) is. Returns (meshes, textures)."""
+    meshes = colonnade(target_tris, seed)
+    m_floor = Material("stone_floor", kd=(0.6, 0.58, 0.55), diffuse_texname="checker.png")
+    m_marble = Material("marble", kd=(0.62, 0.6, 0.58), diffuse_texname="stripes.png")
+    for mesh in meshes:
+        if mesh.name == "room":
+            mesh.material = m_floor
+            mesh.texture_name = m_floor.diffuse_texname
+        elif mesh.name.startswith("sphere"):
+            mesh.material = m_marble
+            mesh.texture_name = m_marble.diffuse_texname
+    return meshes, {"checker.png": checker_texture(), "stripes.png": stripe_texture()}
+
+
+def write_obj(path: str, meshes: List[MeshData], mtl_name: Optional[str] = None):
+    """Write meshes as an OBJ and its MTL (beside it, named after it
+    unless `mtl_name` is given): one `o` shape a mesh, positions, normals
+    and texcoords at 6 decimals, each triangle as v/t/n indices."""
+    mtl_name = mtl_name or os.path.splitext(os.path.basename(path))[0] + ".mtl"
+    mats = {}
+    for mesh in meshes:
+        if mesh.material and mesh.material.name not in mats:
+            mats[mesh.material.name] = mesh.material
+    with open(os.path.join(os.path.dirname(path), mtl_name), "w") as f:
+        for mat in mats.values():
+            f.write(f"newmtl {mat.name}\n")
+            f.write(f"Kd {mat.kd[0]:.6f} {mat.kd[1]:.6f} {mat.kd[2]:.6f}\n")
+            if any(mat.ke):
+                f.write(f"Ke {mat.ke[0]} {mat.ke[1]} {mat.ke[2]}\n")
+            if mat.diffuse_texname:
+                f.write(f"map_Kd {mat.diffuse_texname}\n")
+            f.write("\n")
+    with open(path, "w") as f:
+        f.write(f"mtllib {mtl_name}\n")
+        v_off = n_off = t_off = 1
+        for mesh in meshes:
+            f.write(f"o {mesh.name}\n")
+            pos = np.asarray(mesh.positions).reshape(-1, 3)
+            nrm = np.asarray(mesh.normals).reshape(-1, 3)
+            uv = np.asarray(mesh.texcoords).reshape(-1, 2)
+            for p in pos:
+                f.write(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n")
+            for n in nrm:
+                f.write(f"vn {n[0]:.6f} {n[1]:.6f} {n[2]:.6f}\n")
+            for t in uv:
+                f.write(f"vt {t[0]:.6f} {t[1]:.6f}\n")
+            if mesh.material:
+                f.write(f"usemtl {mesh.material.name}\n")
+            for tri in np.asarray(mesh.indices).reshape(-1, 3):
+                f.write("f " + " ".join(f"{v_off + i}/{t_off + i}/{n_off + i}" for i in tri) + "\n")
+            v_off += pos.shape[0]
+            n_off += nrm.shape[0]
+            t_off += uv.shape[0]
 
 
 def camera_preset(name: str = "cornell"):

@@ -13,8 +13,16 @@ its out exactly the plain walk's at 40 and 4096 steps), renders the
 Cornell box at 1920x1080 with default options through the session API and
 checks that the frame went through every kernel, renders the other
 configurations of bench.py the same way (the colonnade through the BVH
-and through the stream at blocks of 32, 64 and 128), then holds small CUDA
-renders against the CPU path. Every kernel's time stands beside its
+and through the stream at blocks of 32, 64 and 128), holds small CUDA
+renders against the CPU path, then drives the public API and the viewer:
+the 249,190-triangle textured colonnade written as OBJ, MTL and PNGs and
+read back through load_scene_obj on the C++ loader (its meshes held to
+the Python parser's, both textures in the atlas), rendered at 1920x1080
+through the BVH and held to the directly built scene; add_scene of two
+OBJs on K1 and a save_state resume; the CLI at 1080p with --timings, the
+gi1080 per-pass table, and a ViewerState driven through keys, the mouse,
+every panel option and a resize, each frame's launches checked. Every
+kernel's time stands beside its
 bound: the largest of its bytes over 3.35 TB/s, its float32 operations
 over 67 TFLOP/s (the H100 SXM's HBM rate and float32 rate) and its
 special-function operations (lg2, ex2, rcp, sqrt) over 16 a clock on each
@@ -235,8 +243,9 @@ def host_scene(scene: str):
 
 def make_session(width, height, device, options=None, scene="cornell", atlas_u32=False,
                  traversal="auto", stream_block_tris=None):
-    """A session with the scene uploaded; its set_scene time (build and
-    upload, synchronised) in `session.setup_s`."""
+    """A session with the scene uploaded (none for scene=None, with the
+    Cornell camera); its set_scene time (build and upload, synchronised)
+    in `session.setup_s`."""
     import torch
 
     from capsaicin_tpu_torch.render.session import RenderSession
@@ -249,8 +258,10 @@ def make_session(width, height, device, options=None, scene="cornell", atlas_u32
     session = RenderSession(width, height, options=RenderOptions(**options),
                             device=device, traversal=traversal,
                             stream_block_tris=stream_block_tris)
-    session.set_camera(make_camera("colonnade" if scene.startswith("colonnade") else "cornell",
-                                   width, height))
+    session.set_camera(make_camera("colonnade" if scene and scene.startswith("colonnade")
+                                   else "cornell", width, height))
+    if scene is None:
+        return session
     host = host_scene(scene)
     t0 = time.perf_counter()
     session.set_scene(quantize_atlas(host) if atlas_u32 else host)
@@ -1150,6 +1161,224 @@ def run_config(name, cfg, frames, per_frame):
     return launches
 
 
+def variant_launches(o) -> dict:
+    """Per-frame launches of a Cornell frame under RenderOptions `o`
+    (spp 1, eaw_fused "0"): K1 traces primary and direct shadow rays and
+    a bounce and its NEE ray per bounce, K2 fetches twice and once a
+    bounce; K5 runs with gather, K3 and K4 (2 or 4 stages) with denoise."""
+    b = o.num_diffuse_bounces
+    return dict(static_trace=2 + 2 * b, hit_attributes=2 + b, spatial_gather=int(o.gather),
+                eaw_disocclusion=int(o.denoise), eaw_stage=(4 if o.eaw5 else 2) * int(o.denoise),
+                eaw_pair=0, bvh_trace=0)
+
+
+def ingest_phase(tmp, smi):
+    """The textured colonnade (249,190 triangles, two textured materials)
+    written as OBJ + MTL + two PNGs, read back through load_scene_obj on
+    the C++ loader (its meshes held to the Python parser's), rendered at
+    1920x1080 through traversal "auto" (the BVH, K7) and held against the
+    same meshes given to build_scene directly."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from capsaicin_tpu_torch import kernels as K
+    from capsaicin_tpu_torch import native
+    from capsaicin_tpu_torch.scene import build_scene, obj_loader, textures
+    from capsaicin_tpu_torch.scene.procedural import colonnade_textured, make_camera, write_obj
+    from capsaicin_tpu_torch.scene.scene import load_scene_obj
+
+    t_phase = time.perf_counter()
+    meshes, images = colonnade_textured()
+    obj = os.path.join(tmp, "colonnade_textured.obj")
+    t0 = time.perf_counter()
+    write_obj(obj, meshes)
+    for name, img in images.items():
+        Image.fromarray((np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8), "RGBA").save(
+            os.path.join(tmp, name))
+    write_s = time.perf_counter() - t0
+    check(native.available(), "ingest: the C++ OBJ loader did not build")
+    loads = native.loads
+    t0 = time.perf_counter()
+    scene = load_scene_obj(obj, texture_dir=tmp)
+    load_s = time.perf_counter() - t0
+    check(native.loads == loads + 1, "ingest: load_scene_obj did not take the C++ loader")
+    t0 = time.perf_counter()
+    parsed, _ = obj_loader.load_obj(obj)
+    parse_s = time.perf_counter() - t0
+    names = {m.texture_name for m in parsed if m.texture_name}
+    t0 = time.perf_counter()
+    build_scene(parsed, {n: textures.load_texture(n, tmp) for n in names})
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python, _ = obj_loader.load_obj(obj, force_python=True)
+    python_s = time.perf_counter() - t0
+    check([m.name for m in parsed] == [m.name for m in python], "ingest: mesh names differ")
+    for a, b in zip(parsed, python):
+        check(a.indices == b.indices and a.texture_name == b.texture_name,
+              f"ingest: mesh {a.name} differs from the Python parser's")
+        for f in ("positions", "normals", "texcoords"):
+            err = float(np.abs(np.asarray(getattr(a, f)) - np.asarray(getattr(b, f))).max())
+            check(err <= 1e-6, f"ingest: {a.name} {f} differ by {err} from the Python parser's")
+    check(scene.num_triangles == 249_190, f"ingest: {scene.num_triangles} triangles")
+    # both textures loaded: a 1x1 fallback would shrink the tiles
+    check(scene.atlas.shape == (2, 128, 128, 16) and sorted(scene.atlas_size.tolist())
+          == [[96, 48], [128, 128]], f"ingest: atlas {scene.atlas.shape} "
+          f"{scene.atlas_size.tolist()}, expected the 128x128 checker and 48x96 stripes")
+    print(f"ingest: {scene.num_triangles} triangles, atlas {tuple(scene.atlas.shape)}; write_obj "
+          f"{write_s:.3f} s ({os.path.getsize(obj) / 2**20:.1f} MiB); load_scene_obj "
+          f"{load_s:.3f} s; C++ parse {parse_s:.3f} s, build_scene {build_s:.3f} s; "
+          f"Python parse {python_s:.3f} s; {smi}")
+
+    displays = {}
+    for what, host in (("obj", scene), ("direct", build_scene(meshes, images))):
+        session = make_session(W, H, "cuda", scene=None)
+        session.set_camera(make_camera("colonnade", W, H))
+        t0 = time.perf_counter()
+        session.set_scene(host)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        session.render_async()
+        torch.cuda.synchronize()
+        K.reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(FRAMES):
+            display = session.render_async()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / FRAMES
+        launches = {k.name: k.launches for k in K.REGISTRY}
+        displays[what] = display.cpu().numpy()
+        # traversal "auto" takes the BVH above 128 triangles
+        check_launches(launches, dict(bvh_trace=4, hit_attributes=3, static_trace=0), FRAMES,
+                       f"ingest {what}")
+        check_image(displays[what], (H, W, 3), f"ingest {what}", sky_corner=False)
+        print(f"ingest {what}: textured colonnade {W}x{H}, traversal auto: {ms:.2f} ms/frame "
+              f"over {FRAMES} frames; set_scene {setup_s:.3f} s; launches {launches}; {smi}")
+        del session
+    rmse = float(np.sqrt(np.mean((displays["obj"] - displays["direct"]) ** 2)))
+    print(f"ingest: display RMSE, OBJ-loaded against build_scene of the meshes: {rmse:.3g}")
+    check(rmse <= RMSE_BAR, f"ingest: display RMSE {rmse} above {RMSE_BAR}")
+    print(f"phase ingest: {time.perf_counter() - t_phase:.1f} s")
+
+
+def session_phase(tmp, smi):
+    """A 1920x1080 Cornell session loaded from OBJ, add_scene of a second
+    OBJ (52 triangles: K1 carries it), save_state after 4 frames, and the
+    resume in a fresh session held to the first session's frames."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from capsaicin_tpu_torch import kernels as K
+    from capsaicin_tpu_torch.scene.procedural import cornell_box, write_obj
+    from capsaicin_tpu_torch.scene.scene import load_scene_obj
+
+    t_phase = time.perf_counter()
+    box = cornell_box()
+    moved = [dataclasses.replace(m, positions=list(
+        (np.asarray(m.positions, np.float32).reshape(-1, 3) + np.float32([0.4, 0, 0.3]))
+        .reshape(-1))) for m in box if m.name == "tallBox"]
+    paths = [os.path.join(tmp, "cornell.obj"), os.path.join(tmp, "tallbox.obj")]
+    write_obj(paths[0], box)
+    write_obj(paths[1], moved)
+
+    def loaded():
+        session = make_session(W, H, "cuda", scene=None)
+        for path in paths:
+            session.add_scene(load_scene_obj(path))
+        return session
+
+    session = loaded()
+    check(session.scene_host.num_triangles == 52, "session: add_scene gave "
+          f"{session.scene_host.num_triangles} triangles, expected 52")
+    K.reset_counts()
+    for _ in range(4):
+        session.render_async()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in K.REGISTRY}
+    check_launches(launches, dict(FLAGSHIP_LAUNCHES, bvh_trace=0), 4, "session add_scene")
+    state_path = os.path.join(tmp, "state.npz")
+    session.save_state(state_path)
+    for _ in range(4):
+        want = session.render()
+    resumed = loaded()
+    resumed.load_state(state_path)
+    check(resumed.state.frame_count == 4, "session: resumed frame count")
+    for _ in range(4):
+        got = resumed.render()
+    err = float(np.abs(got - want).max())
+    print(f"session: add_scene of 2 OBJs, 52 triangles through K1 ({launches['static_trace']} "
+          f"launches in 4 frames); the resume after 4 frames, 4 more: max abs difference "
+          f"{err:.3g}; {smi}")
+    check(err <= 1e-6, f"session: resumed frames differ by {err}")
+    print(f"phase session: {time.perf_counter() - t_phase:.1f} s")
+
+
+def viewer_phase(tmp, smi):
+    """The CLI at 1920x1080 on the card with --timings, the per-pass table
+    of the gi1080 frame (the reference's timer names; the passes add up to
+    at most the whole frame), and a ViewerState driven through keys, the
+    mouse, every panel option and a resize, each frame's launches those of
+    its variant."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from capsaicin_tpu_torch import kernels as K
+    from capsaicin_tpu_torch.render.profiling import PASS_NAMES
+    from capsaicin_tpu_torch.viewer import cli, web
+
+    t_phase = time.perf_counter()
+    out = os.path.join(tmp, "cli.png")
+    check(cli.main(["--scene", "cornell", "--width", str(W), "--height", str(H), "--frames",
+                    str(FRAMES), "--timings", "--out", out]) == 0, "viewer: the CLI failed")
+    with Image.open(out) as img:
+        check(img.size == (W, H), f"viewer: the CLI wrote a {img.size} image")
+
+    session = make_session(W, H, "cuda")
+    for _ in range(4):
+        session.render_async()
+    for method in ("inframe", "isolated"):
+        table = session.measure_pass_timings(method=method)
+        check(list(table) == list(PASS_NAMES) + ["whole frame"],
+              f"viewer: timings keys {list(table)}")
+        check(all(v >= 0.0 for v in table.values()), f"viewer: a negative time in {table}")
+        passes_s = sum(table[k] for k in PASS_NAMES)
+        if method == "inframe":
+            check(passes_s <= table["whole frame"] * 1.05,
+                  f"viewer: passes {passes_s} s above the whole frame {table['whole frame']} s")
+        print(f"viewer: gi1080 measure_pass_timings({method!r}), ms: "
+              + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in table.items())
+              + f"; passes sum {passes_s * 1e3:.3f}; {smi}")
+
+    state = web.ViewerState(session)
+    steps = [dict(keys=["w"]), dict(keys=["a", "e"]), dict(keys=["s"]), dict(keys=["d", "q"]),
+             dict(dx=12.0), dict(dx=-30.0, dy=8.0), dict(dy=-5.0),
+             dict(settings_updates={"exposure": 0.8, "eaw_luma_sigma": 2.0})]
+    steps += [dict(option_updates={"output": m}) for m in (1, 2, 3, 0)]
+    steps += [dict(option_updates={"num_diffuse_bounces": b}) for b in (0, 2, 1)]
+    for name in ("denoise", "eaw5", "gather", "taa"):
+        steps += [dict(option_updates={name: False}), dict(option_updates={name: True})]
+    steps += [dict(resize=[1280, 720]), dict(keys=["w"], dx=4.0)]
+    t0 = time.perf_counter()
+    for step in steps:
+        K.reset_counts()
+        img, _, _ = state.step(step.get("keys", []), step.get("dx", 0.0), step.get("dy", 0.0),
+                               step.get("settings_updates"), step.get("option_updates"),
+                               step.get("resize"))
+        launches = {k.name: k.launches for k in K.REGISTRY}
+        check_launches(launches, variant_launches(session.options), 1, f"viewer step {step}")
+        check(img.shape == (session.height, session.width, 3) and bool(np.isfinite(img).all()),
+              f"viewer step {step}: image {img.shape}, finite {np.isfinite(img).all()}")
+    if session._bg_thread is not None:
+        session._bg_thread.join(timeout=60)
+    check((session.width, session.height) == (1280, 720), "viewer: resize")
+    print(f"viewer: {len(steps)} ViewerState steps (keys, mouse, knobs, every panel option, a "
+          f"resize to 1280x720) in {time.perf_counter() - t0:.2f} s, launches as each variant's")
+    print(f"phase viewer: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1250,6 +1479,15 @@ def main() -> int:
         print(f"{SMALL}x{SMALL} {what}, {SMALL_FRAMES} frames: display RMSE CUDA vs CPU "
               f"{rmse:.3g}")
         check(rmse <= RMSE_BAR, f"{what}: display RMSE {rmse} above {RMSE_BAR}")
+
+    # 6-8. the public API and the viewer: OBJ ingest, add_scene and the
+    # resume, the CLI, per-pass timings and ViewerState
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ingest_phase(tmp, smi)
+        session_phase(tmp, smi)
+        viewer_phase(tmp, smi)
 
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,

@@ -19,6 +19,9 @@ from capsaicin_tpu_torch import kernels
 from capsaicin_tpu_torch.ops import brute, static
 from capsaicin_tpu_torch.scene import build_scene
 from capsaicin_tpu_torch.scene.procedural import cornell_box
+from torch_threads import share_cores
+
+share_cores()
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,9 @@ from capsaicin_tpu_torch.scene import build_scene
 from capsaicin_tpu_torch.scene.procedural import colonnade
 from test_torch_static_plan import (DET_HI, MARGIN, RCP_ERR, SUM_HI, TINY, adversarial,
                                     exact_accepts, prefilter, t_hi)
+from torch_threads import share_cores
+
+share_cores()
 
 STEP = 4  # MT_STEP: a tile is padded to a multiple of it
 MISS_T = np.float32(1e30)

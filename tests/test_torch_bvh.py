@@ -31,6 +31,9 @@ from capsaicin_tpu_torch import kernels
 from capsaicin_tpu_torch.ops import bvh, lbvh, traverse
 from capsaicin_tpu_torch.scene import build_scene
 from capsaicin_tpu_torch.scene.procedural import colonnade, make_camera
+from torch_threads import share_cores
+
+share_cores()
 
 SMALL = 2000  # colonnade(target_tris=SMALL) has 4,966 triangles
 

@@ -40,6 +40,9 @@ from capsaicin_tpu_torch.render.settings import RenderOptions
 from capsaicin_tpu_torch.render.traversal import resolve_mode
 from capsaicin_tpu_torch.scene import build_scene
 from capsaicin_tpu_torch.scene.procedural import colonnade, cornell_box, make_camera
+from torch_threads import share_cores
+
+share_cores()
 
 W = H = 32
 FRAMES = 3

@@ -37,6 +37,9 @@ from capsaicin_tpu_torch.render.settings import RenderOptions, default_settings
 from capsaicin_tpu_torch.scene import build_scene
 from capsaicin_tpu_torch.scene.procedural import colonnade, cornell_box, make_camera
 from capsaicin_tpu_torch.tools import microstep
+from torch_threads import share_cores
+
+share_cores()
 
 pytestmark = pytest.mark.cuda
 
@@ -698,3 +701,98 @@ def test_stream_trace_beyond_shared_memory(dev, target_tris, n_blocks):
     assert all(torch.equal(bal[k], x) for k, x in zip(("t", "u", "v", "prim"), (t, u, v, prim)))
     hit = stream.stream_trace(sbvh, o, d, 1e-4, tmax, True)
     assert torch.equal(hit, stream.stream_trace_plain(sbvh, o, d, 1e-4, tmax, True)["hit"])
+
+
+def test_obj_ingest_renders_through_the_bvh_at_1080p(dev, tmp_path):
+    """The textured colonnade (reduced to 18,790 triangles) as OBJ + MTL +
+    PNGs, read by the C++ loader, renders at 1920x1080 through the BVH
+    with both textures in the atlas, as the meshes built directly do."""
+    from PIL import Image
+
+    from capsaicin_tpu_torch import native
+    from capsaicin_tpu_torch.scene.procedural import colonnade_textured, write_obj
+    from capsaicin_tpu_torch.scene.scene import load_scene_obj
+
+    meshes, images = colonnade_textured(target_tris=20_000)
+    obj = str(tmp_path / "col.obj")
+    write_obj(obj, meshes)
+    for name, img in images.items():
+        Image.fromarray((np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8), "RGBA").save(
+            str(tmp_path / name))
+    loads = native.loads
+    scene = load_scene_obj(obj, texture_dir=str(tmp_path))
+    assert native.loads == loads + 1 and scene.atlas.shape == (2, 128, 128, 16)
+    displays = []
+    for host in (scene, build_scene(meshes, images)):
+        s = RenderSession(1920, 1080, device=dev)
+        s.set_camera(make_camera("colonnade", 1920, 1080))
+        s.set_scene(host)
+        s.render_async()
+        kernels.reset_counts()
+        for _ in range(2):
+            display = s.render_async()
+        counts = {k.name: k.launches for k in kernels.REGISTRY}
+        assert (counts["bvh_trace"], counts["hit_attributes"], counts["static_trace"]) == (8, 6, 0)
+        displays.append(display.cpu().numpy())
+    assert np.isfinite(displays[0]).all()
+    assert np.sqrt(np.mean((displays[0] - displays[1]) ** 2)) <= 1e-3
+
+
+def test_add_scene_and_resume_on_the_card(dev, tmp_path):
+    """Two OBJs added (52 triangles, so K1 traces them), the state saved
+    after 3 frames and resumed in a fresh session: the next frames equal."""
+    import dataclasses
+
+    from capsaicin_tpu_torch.scene.procedural import write_obj
+    from capsaicin_tpu_torch.scene.scene import load_scene_obj
+
+    box = cornell_box()
+    moved = [dataclasses.replace(m, positions=list(
+        (np.asarray(m.positions, np.float32).reshape(-1, 3) + np.float32([0.4, 0, 0.3]))
+        .reshape(-1))) for m in box if m.name == "tallBox"]
+    paths = [str(tmp_path / "a.obj"), str(tmp_path / "b.obj")]
+    write_obj(paths[0], box)
+    write_obj(paths[1], moved)
+
+    def loaded():
+        s = RenderSession(160, 90, device=dev)
+        s.set_camera(make_camera("cornell", 160, 90))
+        for path in paths:
+            s.add_scene(load_scene_obj(path))
+        return s
+
+    s1 = loaded()
+    assert s1.scene_host.num_triangles == 52
+    kernels.reset_counts()
+    for _ in range(3):
+        s1.render_async()
+    assert {k.name: k.launches for k in kernels.REGISTRY}["static_trace"] == 12
+    s1.save_state(str(tmp_path / "state.npz"))
+    want = [s1.render() for _ in range(2)]
+    s2 = loaded()
+    s2.load_state(str(tmp_path / "state.npz"))
+    got = [s2.render() for _ in range(2)]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+
+
+def test_cli_and_pass_timings_on_the_card(dev, tmp_path, capsys):
+    """init() and the CLI take the card by default, and the CLI prints the
+    reference's timer table; the in-frame passes add up to at most the
+    whole frame."""
+    import capsaicin_tpu_torch as cap
+    from capsaicin_tpu_torch.render.profiling import PASS_NAMES
+    from capsaicin_tpu_torch.viewer import cli
+
+    cap.init()
+    assert cap._initialized
+    out = tmp_path / "cli.png"
+    assert cli.main(["--width", "160", "--height", "90", "--frames", "3", "--timings",
+                     "--out", str(out)]) == 0
+    assert out.exists() and "on cuda" in capsys.readouterr().out
+    s = _session(160, 90, dev)
+    s.render_async()
+    t = s.measure_pass_timings(iters=2)
+    assert list(t) == list(PASS_NAMES) + ["whole frame"] and min(t.values()) >= 0.0
+    assert sum(t[k] for k in PASS_NAMES) <= 1.05 * t["whole frame"]
+    assert s.state.frame_count == 1

@@ -14,6 +14,9 @@ from capsaicin_tpu.scene.procedural import cornell_box_textured as jcornell_box_
 from capsaicin_tpu_torch import convert
 from capsaicin_tpu_torch.ops import lookup
 from capsaicin_tpu_torch.render import shading as tshading
+from torch_threads import share_cores
+
+share_cores()
 
 
 def _inputs(rng, n=5000, textured=False):

@@ -20,6 +20,9 @@ from jax.experimental.pallas import tpu as pltpu
 
 from capsaicin_tpu_torch import kernels
 from capsaicin_tpu_torch.tools import microstep as ms
+from torch_threads import share_cores
+
+share_cores()
 
 STEPS = 40
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

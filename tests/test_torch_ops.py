@@ -20,6 +20,9 @@ from capsaicin_tpu_torch.ops import color as tcol
 from capsaicin_tpu_torch.ops import mathops as tm
 from capsaicin_tpu_torch.ops import resample as tres
 from capsaicin_tpu_torch.ops import sampling as tsamp
+from torch_threads import share_cores
+
+share_cores()
 
 ATOL = 1e-6
 

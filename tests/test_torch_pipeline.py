@@ -38,6 +38,9 @@ from capsaicin_tpu_torch.render.settings import RenderOptions
 from capsaicin_tpu_torch.render.traversal import build_accel, make_traversal
 from capsaicin_tpu_torch.scene import build_scene
 from capsaicin_tpu_torch.scene.procedural import cornell_box, cornell_box_textured, make_camera
+from torch_threads import share_cores
+
+share_cores()
 
 W = H = 32
 FRAMES = 3

@@ -24,6 +24,9 @@ from capsaicin_tpu_torch.render.settings import default_settings as tdefault_set
 from capsaicin_tpu_torch.scene import Scene, build_scene
 from capsaicin_tpu_torch.scene.procedural import cornell_box, make_camera
 from capsaicin_tpu_torch.scene.textures import blue_noise_256
+from torch_threads import share_cores
+
+share_cores()
 
 
 def test_cornell_scene_matches_jax():

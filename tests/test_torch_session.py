@@ -17,6 +17,9 @@ from capsaicin_tpu_torch.render.session import RenderSession
 from capsaicin_tpu_torch.render.settings import RenderOptions
 from capsaicin_tpu_torch.scene import build_scene
 from capsaicin_tpu_torch.scene.procedural import cornell_box, make_camera
+from torch_threads import share_cores
+
+share_cores()
 
 S = 16
 

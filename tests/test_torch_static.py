@@ -19,6 +19,9 @@ from capsaicin_tpu.scene import build_scene as jbuild_scene
 from capsaicin_tpu.scene.procedural import cornell_box as jcornell_box
 from capsaicin_tpu_torch import kernels
 from capsaicin_tpu_torch.ops import static
+from torch_threads import share_cores
+
+share_cores()
 
 N_RAYS = 3001  # not a multiple of the TPU kernel's 1024-ray packets
 

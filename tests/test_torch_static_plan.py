@@ -25,6 +25,9 @@ import torch
 from capsaicin_tpu_torch.ops import static
 from capsaicin_tpu_torch.scene import build_scene
 from capsaicin_tpu_torch.scene.procedural import cornell_box
+from torch_threads import share_cores
+
+share_cores()
 
 MARGIN = 2.0 ** -14  # MT_MARGIN
 TINY = np.float32(1e-30)  # MT_TINY

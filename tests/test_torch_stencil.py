@@ -20,6 +20,9 @@ from capsaicin_tpu_torch import convert
 from capsaicin_tpu_torch.ops import stencil
 from capsaicin_tpu_torch.render import passes as tpasses
 from capsaicin_tpu_torch.render.settings import RenderOptions
+from torch_threads import share_cores
+
+share_cores()
 
 H, W = 40, 150
 TOL = dict(rtol=1e-3, atol=1e-4)

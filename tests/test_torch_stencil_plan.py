@@ -42,6 +42,9 @@ import torch
 from capsaicin_tpu_torch.ops import mathops as m
 from capsaicin_tpu_torch.ops import stencil
 from capsaicin_tpu_torch.render.settings import default_settings
+from torch_threads import share_cores
+
+share_cores()
 
 H, W = 32, 48
 TOL = dict(rtol=1e-3, atol=1e-4)

@@ -27,6 +27,9 @@ from capsaicin_tpu_torch import convert
 from capsaicin_tpu_torch.ops import brute, static, stream
 from capsaicin_tpu_torch.scene import build_scene
 from capsaicin_tpu_torch.scene.procedural import colonnade, cornell_box
+from torch_threads import share_cores
+
+share_cores()
 
 SMALL = 2000
 N_RAYS = 640  # five sub-packets

@@ -37,6 +37,9 @@ from capsaicin_tpu_torch.scene.procedural import colonnade
 
 from test_torch_cuda import _sub_packet_rays
 from test_torch_stream import _hold_closest, _tris
+from torch_threads import share_cores
+
+share_cores()
 
 RESIDENT = 132 * 8  # an H100's SMs x the 8 blocks of 128 threads K10 is built for
 RAYS_1080P = 1920 * 1080
