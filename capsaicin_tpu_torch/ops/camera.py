@@ -4,6 +4,7 @@ reference)."""
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -46,10 +47,27 @@ def camera_to(camera: Camera, device) -> Camera:
     return Camera(*[torch.as_tensor(x, dtype=torch.float32).to(device) for x in camera])
 
 
-def pixel_grid(width: int, height: int, device=None):
-    """Integer pixel coordinates [H,W,2] = (x, y)."""
+def tilted(camera: Camera, height: int) -> Camera:
+    """The camera pitched and its sensor made taller, its position kept:
+    the reprojection of a still scene moves row y of a `height`-row image
+    by about 0.015 y / height px, so the reprojection's static-camera test
+    (a drift of 0.01 px, the max over the frame) holds in the upper rows
+    and fails in the lower ones. A mesh session must take that test over
+    all its row blocks; this move tells whether it does."""
+    e = 0.015 / height
+    s = camera.sensor_size
+    theta = 0.5 * e * float(s[1]) / float(camera.focal_length)
+    f, u = camera.forward, camera.up
+    return camera._replace(sensor_size=torch.stack([s[0], s[1] * (1 + e)]),
+                           forward=math.cos(theta) * f + math.sin(theta) * u,
+                           up=math.cos(theta) * u - math.sin(theta) * f)
+
+
+def pixel_grid(width: int, height: int, device=None, row0: int = 0):
+    """Integer pixel coordinates [H,W,2] = (x, y) of the image rows
+    [row0, row0 + height) (a row block of a mesh session)."""
     ys, xs = torch.meshgrid(
-        torch.arange(height, dtype=torch.int32, device=device),
+        torch.arange(row0, row0 + height, dtype=torch.int32, device=device),
         torch.arange(width, dtype=torch.int32, device=device),
         indexing="ij",
     )

@@ -500,6 +500,13 @@ def chain_strides(options):
     return (1, 3, 5, 7) if options.eaw5 else (1, 3)
 
 
+def chain_reach(options) -> int:
+    """Rows of the chain's input that one output depends on, above and
+    below: K3's reach and each stage's 2 * stride (a K6 pair reaches as far
+    as its two stages)."""
+    return DISOCC_REACH + sum(2 * s for s in chain_strides(options))
+
+
 def chain_groups(options):
     """The chain's a-trous stages in order, as groups of one stride (a K4
     launch) or two (a K6 launch), as pallas_stencil.denoise_chain groups

@@ -7,7 +7,8 @@ and per-kernel device time of the port's frame from a torch.profiler trace.
 the session's state: on CUDA with a pair of CUDA events around each pass
 on the frame's stream, read after one sync at the end of the frame; on
 the CPU, or with method="isolated" (a device sync before and after each
-pass), with the host clock.
+pass), with the host clock. On a mesh session of several GPUs each pass
+has an event pair on each GPU, and its time is its slowest GPU's.
 
 A kernel belongs to the pass whose profiler range (pipeline.PASS_NAMES)
 was open on the host when the kernel was launched; the trace ties each
@@ -55,42 +56,54 @@ PASS_NAMES = (
 
 class PassTimer:
     """A per-pass timer for pipeline.render_frame's `timer` hook. Seconds
-    add up by name over frames, in the order the passes end."""
+    add up by name over frames, in the order the passes end. `devices`:
+    the session's distinct devices (on a mesh of several, a pass takes the
+    time of its slowest device)."""
 
-    def __init__(self, device: torch.device, isolated: bool = False):
-        self.device = device
-        self.events = device.type == "cuda" and not isolated
-        self.sync = device.type == "cuda" and isolated
+    def __init__(self, devices, isolated: bool = False):
+        self.devices = [torch.device(d) for d in devices]
+        cuda = all(d.type == "cuda" for d in self.devices)
+        self.events = cuda and not isolated
+        self.sync = cuda and isolated
         self.seconds: Dict[str, float] = {}
         self._pending = []
 
     def _add(self, name: str, seconds: float):
         self.seconds[name] = self.seconds.get(name, 0.0) + seconds
 
+    def _record(self):
+        """An event recorded on each device's current stream."""
+        events = [torch.cuda.Event(enable_timing=True) for _ in self.devices]
+        for e, d in zip(events, self.devices):
+            e.record(torch.cuda.current_stream(d))
+        return events
+
+    def _synchronize(self):
+        for d in self.devices:
+            torch.cuda.synchronize(d)
+
     @contextmanager
     def __call__(self, name: str):
         if self.events:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+            start = self._record()
             yield
-            end.record()
-            self._pending.append((name, start, end))
+            self._pending.append((name, start, self._record()))
             return
         if self.sync:
-            torch.cuda.synchronize(self.device)
+            self._synchronize()
         t0 = time.perf_counter()
         yield
         if self.sync:
-            torch.cuda.synchronize(self.device)
+            self._synchronize()
         self._add(name, time.perf_counter() - t0)
 
     def end_frame(self):
         """Read the frame's events after one sync (CUDA events only)."""
         if self._pending:
-            self._pending[-1][2].synchronize()
+            for e in self._pending[-1][2]:
+                e.synchronize()
             for name, start, end in self._pending:
-                self._add(name, start.elapsed_time(end) / 1e3)
+                self._add(name, max(s.elapsed_time(e) for s, e in zip(start, end)) / 1e3)
             self._pending = []
 
 
@@ -104,7 +117,7 @@ def measure_pass_timings(session, iters: int = 3, method: str = "inframe") -> Di
     if method not in ("inframe", "isolated"):
         raise ValueError(f"unknown method {method!r}: expected 'inframe' or 'isolated'")
     session.frame()  # untimed: the first frame of a variant sets up its buffers
-    timer = PassTimer(session.device, isolated=method == "isolated")
+    timer = PassTimer(session.devices, isolated=method == "isolated")
     for _ in range(max(int(iters), 1)):
         with timer("whole frame"):
             session.frame(timer=timer)

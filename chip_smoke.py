@@ -21,7 +21,12 @@ the Python parser's, both textures in the atlas), rendered at 1920x1080
 through the BVH and held to the directly built scene; add_scene of two
 OBJs on K1 and a save_state resume; the CLI at 1080p with --timings, the
 gi1080 per-pass table, and a ViewerState driven through keys, the mouse,
-every panel option and a resize, each frame's launches checked. Every
+every panel option and a resize, each frame's launches checked; then
+renders on meshes of n x cuda:0 (RenderSession(mesh=...): gi1080 on 2 and
+8 row blocks and the colonnade through the BVH and the stream on 2, each
+held to the unsharded frame with every kernel launched n times its
+per-frame count, the EAW chain per block with its halo on 8 blocks of a
+1920x272 crop, ms/frame on 1, 2 and 8 blocks). Every
 kernel's time stands beside its
 bound: the largest of its bytes over 3.35 TB/s, its float32 operations
 over 67 TFLOP/s (the H100 SXM's HBM rate and float32 rate) and its
@@ -242,10 +247,10 @@ def host_scene(scene: str):
 
 
 def make_session(width, height, device, options=None, scene="cornell", atlas_u32=False,
-                 traversal="auto", stream_block_tris=None):
+                 traversal="auto", stream_block_tris=None, mesh=None):
     """A session with the scene uploaded (none for scene=None, with the
-    Cornell camera); its set_scene time (build and upload, synchronised)
-    in `session.setup_s`."""
+    Cornell camera), on `mesh` where given; its set_scene time (build and
+    upload, synchronised) in `session.setup_s`."""
     import torch
 
     from capsaicin_tpu_torch.render.session import RenderSession
@@ -257,7 +262,7 @@ def make_session(width, height, device, options=None, scene="cornell", atlas_u32
     options = {"eaw_fused": "0", "eaw_bf16": False, **(options or {})}
     session = RenderSession(width, height, options=RenderOptions(**options),
                             device=device, traversal=traversal,
-                            stream_block_tris=stream_block_tris)
+                            stream_block_tris=stream_block_tris, mesh=mesh)
     session.set_camera(make_camera("colonnade" if scene and scene.startswith("colonnade")
                                    else "cornell", width, height))
     if scene is None:
@@ -265,7 +270,7 @@ def make_session(width, height, device, options=None, scene="cornell", atlas_u32
     host = host_scene(scene)
     t0 = time.perf_counter()
     session.set_scene(quantize_atlas(host) if atlas_u32 else host)
-    if device == "cuda":
+    if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     session.setup_s = time.perf_counter() - t0
     return session
@@ -1379,6 +1384,157 @@ def viewer_phase(tmp, smi):
     print(f"phase viewer: {time.perf_counter() - t_phase:.1f} s")
 
 
+def mesh_phase(smi) -> dict:
+    """Multi-device rendering on meshes of n x cuda:0 (one card: the cost
+    of sharding, not a scaling): gi1080 on 2 and 8 row blocks, 3 frames
+    against the unsharded session, the third with a camera whose drift
+    passes 0.01 px in some blocks only (so the static-camera test must be
+    the mesh's), and gi1080_eaw_fused1 on 2 blocks, 1 frame (K6); each
+    kernel launched n times its per-frame count. The EAW chain per block of
+    a 1920x272 crop on 8 blocks (32 and 36 rows against its reach of 35:
+    multi-hop) held to the unsharded chain. The colonnade through the BVH
+    and through the stream on 2 blocks, 2 frames against the unsharded
+    session, with the primary set's differing hit ids. Every display but
+    the stream's is the unsharded one bit for bit; the stream's bounce
+    sub-packets differ per block (exact ties may differ), so it is held
+    to display RMSE 1e-3. ms/frame of gi1080 unsharded and on 1, 2 and 8
+    blocks. Returns the launches of the checked mesh frames (its path)."""
+    import numpy as np
+    import torch
+
+    from capsaicin_tpu_torch import kernels as K
+    from capsaicin_tpu_torch.ops import mathops, stencil
+    from capsaicin_tpu_torch.ops.camera import tilted
+    from capsaicin_tpu_torch.parallel import make_mesh
+    from capsaicin_tpu_torch.parallel import sharding as sh
+    from capsaicin_tpu_torch.render import passes
+    from capsaicin_tpu_torch.render.settings import RenderOptions
+
+    t_phase = time.perf_counter()
+    path = {k.name: 0 for k in K.REGISTRY}
+
+    def counted(fn):
+        """fn() with the counts set to 0 before it; (its result, the launches)."""
+        K.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in K.REGISTRY}
+        for k, v in launches.items():
+            path[k] += v
+        return out, launches
+
+    def compare(what, got, want, exact=True):
+        diff = np.abs(got.astype(np.float64) - want)
+        rmse = float(np.sqrt(np.mean(diff ** 2)))
+        differ = int((diff > 0).any(-1).sum())
+        print(f"mesh {what}: display max abs difference {diff.max():.3g}, RMSE {rmse:.3g}, "
+              f"{differ} differing pixels")
+        check(bool(np.isfinite(got).all()), f"mesh {what}: non-finite pixels")
+        check(rmse <= RMSE_BAR, f"mesh {what}: display RMSE {rmse} above {RMSE_BAR}")
+        check(not exact or differ == 0, f"mesh {what}: {differ} pixels differ")
+
+    device = "cuda:0"
+
+    def shards(n):
+        return make_mesh([device] * n)
+
+    # gi1080 on 2 and 8 blocks against the unsharded frames
+    ref = make_session(W, H, device)
+    cams = [ref.camera, ref.camera, tilted(ref.camera, H)]
+    want = []
+    for cam in cams:
+        ref.set_camera(cam)
+        want.append(ref.render())
+    geo = passes.reprojection(cams[2], cams[1], ref.state.prev_nd_depth, W, H)
+    sessions = {}
+    for n in (2, 8):
+        s = sessions[n] = make_session(W, H, device, mesh=shards(n))
+        blocks = s.sharding.blocks
+        drift = [float(geo["drift"][b.start:b.stop].max()) for b in blocks]
+        print(f"mesh gi1080 on {n} blocks of {[b.rows for b in blocks]} rows; frame 3's drift "
+              f"max a block {[round(d, 4) for d in drift]} px")
+        check(min(drift) < 1e-2 < max(drift), f"mesh: frame 3's drift {drift} is not split")
+
+        def run():
+            out = []
+            for cam in cams:
+                s.set_camera(cam)
+                out.append(s.render())
+            return out
+
+        got, launches = counted(run)
+        check_launches(launches, {k: n * v for k, v in FLAGSHIP_LAUNCHES.items()}, len(cams),
+                       f"mesh gi1080 on {n} blocks")
+        for f in range(len(cams)):
+            compare(f"gi1080 on {n} blocks, frame {f + 1}", got[f], want[f])
+    fused = dict(options=dict(eaw_fused="1"))
+    want_fused = make_session(W, H, device, **fused).render()
+    s = make_session(W, H, device, mesh=shards(2), **fused)
+    got, launches = counted(s.render)
+    check_launches(launches, dict(eaw_pair=4, eaw_stage=0, eaw_disocclusion=2), 1,
+                   "mesh gi1080_eaw_fused1 on 2 blocks")
+    compare("gi1080_eaw_fused1 on 2 blocks", got, want_fused)
+
+    # the EAW chain on a 1920x272 crop of frame 3's state, 8 blocks (multi-hop)
+    st, rows = ref.state, slice(H // 2 - 136, H // 2 + 136)
+    inputs = (st.color_history[rows].float(), mathops.oct_decode(st.prev_nd_oct[rows]),
+              st.prev_nd_depth[rows], st.moments_history[rows].float())
+    sharding = sh.row_sharding(shards(8), 272)
+    for variant in (dict(), dict(eaw_fused="1"), dict(eaw_bf16=True)):
+        opts = RenderOptions(**{"eaw_fused": "0", "eaw_bf16": False, **variant})
+        reach = stencil.chain_reach(opts)
+        chain_want = stencil.denoise_chain(*inputs, ref.settings, opts)
+        chain_got = sh.gather_rows(sh.halo_map(
+            sharding, lambda *x: stencil.denoise_chain(*x, ref.settings, opts), reach,
+            *[sh.shard_rows(sharding, x) for x in inputs]), device)
+        err = float((chain_got - chain_want).abs().max())
+        print(f"mesh EAW chain {variant or 'eaw5'} on 1920x272, 8 blocks of "
+              f"{[b.rows for b in sharding.blocks]} rows, halo {reach}: max abs difference "
+              f"{err:.3g} from the unsharded chain, "
+              f"{int((chain_got != chain_want).any(-1).sum())} differing pixels")
+        check(torch.allclose(chain_got, chain_want, **TOL), f"mesh chain {variant}: {err}")
+
+    # the colonnade through the BVH and the stream on 2 blocks
+    for traversal, per_frame in (("bvh", COLONNADE_LAUNCHES), ("stream", STREAM_LAUNCHES)):
+        cfg = dict(scene="colonnade", traversal=traversal)
+        ref_c, s = make_session(W, H, device, **cfg), make_session(W, H, device, mesh=shards(2),
+                                                                   **cfg)
+        display, ref_c.state, aux = ref_c.frame(collect_aux=True)
+        want_c = [display.cpu().numpy(), ref_c.render()]
+
+        def run():
+            d, s.state, a = s.frame(collect_aux=True)
+            return [d.cpu().numpy(), s.render()], a
+
+        (got, got_aux), launches = counted(run)
+        check_launches(launches, {k: 2 * v for k, v in per_frame.items()}, 2,
+                       f"mesh colonnade {traversal} on 2 blocks")
+        ids = int((got_aux.gbuffer_prim != aux.gbuffer_prim).sum())
+        print(f"mesh colonnade {traversal} on 2 blocks: {ids} of {W * H} primary hit ids differ; "
+              f"set-up {s.setup_s:.3f} s (unsharded {ref_c.setup_s:.3f} s)")
+        for f in range(2):
+            compare(f"colonnade {traversal} on 2 blocks, frame {f + 1}", got[f], want_c[f],
+                    exact=traversal != "stream")
+        del ref_c, s
+
+    # the cost of sharding on one card
+    sessions[None], sessions[1] = ref, make_session(W, H, device, mesh=shards(1))
+    for n in (None, 1, 2, 8):
+        s = sessions[n]
+        s.render_async()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FRAMES):
+            s.render_async()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / FRAMES
+        print(f"mesh gi1080 {'unsharded' if n is None else f'on {n} x {device}'}: {ms:.2f} "
+              f"ms/frame over {FRAMES} frames; {smi}")
+    print(f"mesh path launches: {path}")
+    print(f"phase mesh: {time.perf_counter() - t_phase:.1f} s")
+    return path
+
+
 def main() -> int:
     import torch
 
@@ -1488,6 +1644,12 @@ def main() -> int:
         ingest_phase(tmp, smi)
         session_phase(tmp, smi)
         viewer_phase(tmp, smi)
+
+    # 9. multi-device rendering: every kernel of a mesh frame's path launched
+    mesh_path = mesh_phase(smi)
+    for name in ("static_trace", "hit_attributes", "spatial_gather", "eaw_disocclusion",
+                 "eaw_stage", "eaw_pair", "bvh_trace", "stream_trace", "stream_count"):
+        check(mesh_path[name] > 0, f"{name} was never launched on the mesh path")
 
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,

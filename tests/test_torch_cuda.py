@@ -14,7 +14,11 @@ edges too; K8 also bit-equal to its plain version over several tiles of
 triangles; the walk benchmark (K9) exactly, at 50 and at 4096 steps; the stream traversal (K10, K11), which pops blocks in the order
 of its plain version, to hit ids and counts equal and t/u/v within 1e-5;
 K11 also on the edges of its grouping of sub-packets. K6 also on images
-smaller than its tile and on the tap's edge cases.
+smaller than its tile and on the tap's edge cases. A mesh session of 2 or
+8 x cuda:0 (parallel.sharding) bit-equal to the unsharded session through
+K1 and K7 (the stream within display RMSE 1e-3: its bounce sub-packets
+differ per block), with n times the launches; the EAW chain per row block
+with its halo bit-equal to the unsharded chain.
 
 Marked `cuda`: each test skips, with the reason, where CUDA is unavailable
 (the decision is taken inside the fixture, never at import). On a machine
@@ -796,3 +800,75 @@ def test_cli_and_pass_timings_on_the_card(dev, tmp_path, capsys):
     assert list(t) == list(PASS_NAMES) + ["whole frame"] and min(t.values()) >= 0.0
     assert sum(t[k] for k in PASS_NAMES) <= 1.05 * t["whole frame"]
     assert s.state.frame_count == 1
+
+
+@pytest.mark.parametrize("n, traversal", [(2, "static"), (8, "static"), (2, "bvh"), (2, "stream")])
+def test_mesh_session_on_the_card(dev, n, traversal):
+    """A mesh of n x cuda:0 at 64x64 (Cornell through K1; the reduced
+    colonnade through K7 and K10/K11): three frames, the third with a
+    camera whose drift passes 0.01 px in some blocks only, against the
+    unsharded session on the card. Each kernel launches n times as often
+    as on one device; the display is bit-equal (the stream's bounce
+    sub-packets differ per block, so there exact ties may differ: display
+    RMSE <= 1e-3)."""
+    from capsaicin_tpu_torch.ops.camera import tilted
+    from capsaicin_tpu_torch.parallel import make_mesh
+
+    scene = "cornell" if traversal == "static" else "colonnade"
+    ref = _session(64, 64, dev, scene=scene, traversal=traversal)
+    mesh = RenderSession(64, 64, options=RenderOptions(), traversal=traversal,
+                         mesh=make_mesh([dev] * n))
+    mesh.set_camera(ref.camera)
+    mesh.set_scene(ref.scene_host)
+    for frame in range(3):
+        if frame == 2:
+            camera = tilted(ref.camera, 64)
+            for s in (ref, mesh):
+                s.set_camera(camera)
+        images, counts = [], []
+        for s in (ref, mesh):
+            kernels.reset_counts()
+            images.append(s.render())
+            counts.append({k.name: k.launches for k in kernels.REGISTRY})
+        want, got = images
+        assert counts[1] == {k: n * c for k, c in counts[0].items()}, counts
+        assert counts[0][{"static": "static_trace", "bvh": "bvh_trace",
+                          "stream": "stream_trace"}[traversal]] == 4
+        if traversal == "stream":
+            assert float(np.sqrt(np.mean((got - want) ** 2))) <= 1e-3
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=f"frame {frame}")
+
+
+@pytest.mark.parametrize("variant", [dict(), dict(eaw_fused="1"), dict(eaw_bf16=True)],
+                         ids=["eaw5", "eaw_fused1", "eaw_bf16"])
+def test_halo_chain_on_the_card(dev, variant):
+    """K3 and K4 (or K6) per row block of a 1920x272 image on 8 blocks of
+    32 and 36 rows with the chain's halo of 35 rows (multi-hop), on
+    extended heights no tile divides: the unsharded chain's result, bit
+    for bit (each output's taps and their order do not depend on the
+    tiling)."""
+    from capsaicin_tpu_torch.parallel import make_mesh
+    from capsaicin_tpu_torch.parallel import sharding as sh
+
+    options = RenderOptions(**{"eaw_fused": "0", "eaw_bf16": False, **variant})
+    rng = np.random.default_rng(11)
+    h, w = 272, 1920
+    color4 = torch.from_numpy(rng.uniform(0, 1, (h, w, 4)).astype(np.float32)).to(dev)
+    moments4 = torch.from_numpy(np.concatenate(
+        [rng.uniform(0, 1, (h, w, 2)), np.zeros((h, w, 1)), rng.uniform(1, 20, (h, w, 1))],
+        -1).astype(np.float32)).to(dev)
+    n = rng.normal(size=(h, w, 3)).astype(np.float32)
+    normal = torch.from_numpy(n / np.linalg.norm(n, axis=-1, keepdims=True)).to(dev)
+    depth = torch.from_numpy(rng.uniform(1, 5, (h, w)).astype(np.float32)).to(dev)
+    inputs = (color4, normal, depth, moments4)
+    settings = default_settings()
+    want = stencil.denoise_chain(*inputs, settings, options)
+    sharding = sh.row_sharding(make_mesh([dev] * 8), h)
+    assert [b.rows for b in sharding.blocks] == [32, 36] * 4
+    kernels.reset_counts()
+    got = sh.halo_map(sharding, lambda *x: stencil.denoise_chain(*x, settings, options),
+                      stencil.chain_reach(options), *[sh.shard_rows(sharding, x) for x in inputs])
+    assert kernels.REGISTRY and sum(k.launches for k in kernels.REGISTRY) == 8 * (
+        1 + len(stencil.chain_groups(options)))
+    assert torch.equal(sh.gather_rows(got, dev), want)

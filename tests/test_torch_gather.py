@@ -70,6 +70,14 @@ def test_gather_matches_pallas_kernel(rng, storage):
         assert err.max() <= BF16_MAX and err.mean() <= BF16_MEAN, (err.max(), err.mean())
 
 
+def _gather_pass(indirect, oct, depth, frame_count, options):
+    """The port's spatial gather pass, as the frame runs it on one block."""
+    nd = {"oct": torch.from_numpy(oct), "depth": torch.from_numpy(depth)}
+    return tpasses.gather_filter(
+        *tpasses.gather_inputs(torch.from_numpy(indirect), nd, frame_count, options),
+        convert.settings_from_numpy(jdefault_settings()))
+
+
 @pytest.mark.parametrize("lowres", [False, True], ids=["full", "lowres"])
 def test_gather_pass_matches_jnp(rng, lowres):
     """The pass against the jnp pass; under lowres_indirect the normals and
@@ -83,9 +91,7 @@ def test_gather_pass_matches_jnp(rng, lowres):
         want = jpasses.spatial_gather(
             jnp.asarray(indirect), jnd, w, h, 5, jdefault_settings(),
             JOptions(lowres_indirect=lowres, eaw_fused="0", eaw_bf16=False))
-    got = tpasses.spatial_gather(
-        torch.from_numpy(indirect), {"oct": torch.from_numpy(oct), "depth": torch.from_numpy(depth)},
-        5, convert.settings_from_numpy(jdefault_settings()), RenderOptions(lowres_indirect=lowres))
+    got = _gather_pass(indirect, oct, depth, 5, RenderOptions(lowres_indirect=lowres))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -94,9 +100,7 @@ def test_gather_bf16_pass_rounds_inputs_once(rng):
     bf16 kernel and widens the result: it equals the plain version on the
     rounded inputs, rounded, exactly."""
     indirect, oct, depth = _inputs(rng)
-    got = tpasses.spatial_gather(
-        torch.from_numpy(indirect), {"oct": torch.from_numpy(oct), "depth": torch.from_numpy(depth)},
-        0, convert.settings_from_numpy(jdefault_settings()), RenderOptions(eaw_bf16=True))
+    got = _gather_pass(indirect, oct, depth, 0, RenderOptions(eaw_bf16=True))
     assert got.dtype == torch.float32
     normal = tpasses.m.oct_decode(torch.from_numpy(oct))
     want = _port(indirect, normal.numpy(), depth, torch.bfloat16)

@@ -53,8 +53,8 @@ def _port_chain(buffers, options):
     color4, oct, depth, moments4 = buffers
     nd = {"oct": torch.tensor(oct), "depth": torch.tensor(depth)}
     settings = convert.settings_from_numpy(jdefault_settings())
-    return tpasses.denoise(torch.from_numpy(color4), nd, torch.from_numpy(moments4),
-                           settings, options).numpy()
+    return stencil.denoise_chain(*tpasses.denoise_inputs(
+        torch.from_numpy(color4), nd, torch.from_numpy(moments4)), settings, options).numpy()
 
 
 def test_chain_matches_pallas_chain(buffers):

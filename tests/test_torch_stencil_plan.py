@@ -16,8 +16,9 @@ exactly) and zero normals (tw = 0: the colour passes, the variance is 0).
 (b) `disocc_plan`, `stage_plan` and `gather_plan`: every output pixel is computed by
 exactly one thread, every tap of a pixel lies in its block's staged tile,
 and the shared memory stays under the limit, at [1080,1920], [540,960],
-[67,129], [5,3] and [1,1] and strides 1, 3, 5, 7; the tiles match the
-constants of the CUDA sources.
+[67,129], [5,3], [1,1] and the mesh session's halo-extended [206,1920]
+and [78,64], and strides 1, 3, 5, 7; the tiles match the constants of the
+CUDA sources.
 
 (c) K6 (csrc/eaw_pair.cu): a model of the pair as the kernel computes it
 (stage A with K4's tap over the region, its output kept in float32 and
@@ -27,7 +28,7 @@ only) against `eaw_pair_plain` at rtol 1e-3 / atol 1e-4 in float32 and
 within the bf16 bars (max 2e-2, mean 1e-3) in bf16, at (1, 3), (5, 7) and
 stride_b 9; `pair_plan`: each region pixel is computed once by stage A,
 each output once by stage B, every stage-B tap lies in the region, at
-[1080,1920], [540,960], [67,129], [5,3], [1,1], for cards of 132, 114
+the same shapes, for cards of 132, 114
 and 1 SMs; the plan refuses what the kernel cannot take; its constants
 match the CUDA source."""
 
@@ -281,7 +282,9 @@ def _plan_outputs(plan, h, w):
     return x[inside], y[inside], sx[inside], sy[inside]
 
 
-PLAN_SHAPES = [(1080, 1920), (540, 960), (67, 129), (5, 3), (1, 1)]
+# the last two: a mesh session's halo-extended blocks (136 + 2 * 35 rows of
+# the 1080p frame on 8 devices; 8 + 2 * 35 rows of a 64x64 one)
+PLAN_SHAPES = [(1080, 1920), (540, 960), (67, 129), (5, 3), (1, 1), (206, 1920), (78, 64)]
 
 
 def _check_plan(plan, h, w):
