@@ -21,6 +21,7 @@ intervals that no earlier device work covers. Needs a CUDA session; run on a GPU
     python -m capsaicin_tpu_torch.render.profiling --scene colonnade --traversal bvh
     python -m capsaicin_tpu_torch.render.profiling --scene colonnade --traversal stream \
         --stream-block 64
+    python -m capsaicin_tpu_torch.render.profiling --scene colonnade --traversal cull --frames 2
 """
 
 from __future__ import annotations
@@ -206,8 +207,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scene", choices=("cornell", "colonnade"), default="cornell",
                     help="the Cornell box (40 triangles) or the colonnade (~250k)")
     ap.add_argument("--traversal", default="auto",
-                    help="static, brute, bvh, stream or auto (static up to 128 triangles, "
-                    "else bvh)")
+                    choices=("auto", "static", "brute", "bvh", "stream", "wavefront", "cull"),
+                    help="auto: static up to 128 triangles, else bvh")
     ap.add_argument("--stream-block", type=int, default=None,
                     help="triangles per block of traversal stream (default 32)")
     ap.add_argument("--json", help="also write the result to this file")

@@ -31,8 +31,8 @@ from ..parallel import sharding as sh
 from ..scene import textures
 from . import pipeline, shading
 from .settings import RenderOptions, Settings, default_settings
-from .traversal import (build_accel, make_stream_bounce_fns, make_traversal, resolve_mode,
-                        with_ray_sorting, with_ray_sorting_any)
+from .traversal import (build_accel, make_bounce_fns, make_stream_bounce_fns, make_traversal,
+                        resolve_mode, with_ray_sorting, with_ray_sorting_any)
 
 
 class RenderSession:
@@ -125,30 +125,34 @@ class RenderSession:
 
     def _traces(self, accel, pixels):
         """(closest, any) of the scene's mode on `accel`, the pixel-order
-        ones knowing the frame's (W, H) from `pixels`; and, for the modes
-        that sort their bounce rays (while options.sort_bounce_rays holds),
-        the sorted (bounce closest, bounce any), else None, and the sorted
-        direct shadow any-hit of the stream mode, else None. The BVH and
-        stream modes trace bounce rays sorted (so not in pixel order), as
-        the JAX package does for its packet and stream kernels; the stream
-        mode sorts the direct shadow rays too (by octant) and balances the
-        bounce closest-hit trace."""
+        ones knowing the frame's (W, H) from `pixels`; the bounce-ray
+        (closest, any) of the modes that have their own, else None; and the
+        sorted direct shadow any-hit of the stream mode, else None. As the
+        JAX package: the BVH and wavefront modes trace bounce rays sorted
+        (so not in pixel order) while options.sort_bounce_rays holds; the
+        stream mode then also sorts the direct shadow rays (by octant) and
+        balances the bounce closest-hit trace; the cull mode always traces
+        bounce rays through its incoherent funnel, sorted
+        (traversal.make_bounce_fns)."""
         mode = self._mode
         closest, any_hit = make_traversal(mode, accel)
         sorted_trace = sorted_shadow = None
-        if mode == "bvh":
+        if mode in ("bvh", "wavefront"):
             sorted_trace = (with_ray_sorting(closest), with_ray_sorting_any(any_hit))
         elif mode == "stream":
             sorted_trace = make_stream_bounce_fns(accel)
             sorted_shadow = with_ray_sorting_any(any_hit)
+        elif mode == "cull":
+            sorted_trace = make_bounce_fns(accel)
         return make_traversal(mode, accel, pixels), sorted_trace, sorted_shadow
 
-    @staticmethod
-    def _pick(traces, options):
-        """(closest, any, bounce closest, bounce any) of `_traces` for `options`."""
+    def _pick(self, traces, options):
+        """(closest, any, bounce closest, bounce any) of `_traces` for
+        `options`: the cull mode's bounce functions whatever
+        sort_bounce_rays says, the others' only while it holds."""
         (closest, any_hit), sorted_trace, sorted_shadow = traces
         bounce = bounce_any = None
-        if sorted_trace is not None and options.sort_bounce_rays:
+        if sorted_trace is not None and (options.sort_bounce_rays or self._mode == "cull"):
             bounce, bounce_any = sorted_trace
             any_hit = sorted_shadow or any_hit
         return closest, any_hit, bounce, bounce_any

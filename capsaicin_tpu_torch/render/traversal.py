@@ -10,6 +10,12 @@ Backends:
   "bvh"    - a median-built BVH walked per ray (K7, ops.bvh)
   "stream" - per-128-ray cull of every leaf block, then the hit blocks
              streamed nearest first (K10 and K11, ops.stream)
+  "wavefront" - 128-ray packets walk the BVH all at once, listing leaf rows,
+             then test the listed triangles (ops.wavefront, plain torch)
+  "cull"   - 32-ray packets through a level cull, a frontier descent and
+             the hit rows' triangles (ops.cull, plain torch): packet-interval
+             tests for primary and shadow rays, per-ray tests for bounce
+             rays (make_bounce_fns)
   "auto"   - "static" up to 128 triangles, else "bvh": the JAX package's
              rule on its production device
 """
@@ -18,12 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import brute, bvh, static, stream
-
-_NOT_PORTED = {
-    "wavefront": "ROADMAP A (not to be ported: pure-XLA backend)",
-    "cull": "ROADMAP A (not to be ported: pure-XLA backend)",
-}
+from ..ops import brute, bvh, cull, static, stream, wavefront
 
 
 def resolve_mode(mode: str, num_triangles: int) -> str:
@@ -31,8 +32,6 @@ def resolve_mode(mode: str, num_triangles: int) -> str:
         return "static" if num_triangles <= static.MAX_STATIC_TRIS else "bvh"
     if mode in _BACKENDS:
         return mode
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(f"traversal={mode!r} is not ported: {_NOT_PORTED[mode]}")
     raise ValueError(f"unknown traversal mode {mode!r}")
 
 
@@ -50,6 +49,10 @@ def build_accel(scene, mode: str, stream_block_tris: int = None):
         return bvh.build_bvh(tris)
     if mode == "stream":
         return stream.build_stream_bvh(tris, stream_block_tris or stream.BLOCK_TRIS)
+    if mode == "wavefront":
+        return wavefront.build_wavefront_bvh(tris)
+    if mode == "cull":
+        return cull.build_cull_bvh(tris)
     raise ValueError(f"no acceleration structure for traversal {mode!r}")
 
 
@@ -58,6 +61,9 @@ _BACKENDS = {
     "brute": (brute.brute_force_closest, brute.brute_force_any),
     "bvh": (bvh.bvh_closest, bvh.bvh_any),
     "stream": (stream.stream_closest, stream.stream_any),
+    "wavefront": (wavefront.wavefront_closest, wavefront.wavefront_any),
+    # primary and shadow rays: the coherent funnel (make_bounce_fns has the other)
+    "cull": (cull.cull_closest, cull.cull_any),
 }
 
 
@@ -130,3 +136,18 @@ def make_stream_bounce_fns(sbvh):
 
     return (with_ray_sorting(closest, dir_grid=4),
             with_ray_sorting_any(any_hit, dir_grid=4))
+
+
+def make_bounce_fns(cull_bvh):
+    """The cull mode's bounce-ray trace functions, as the JAX package's:
+    the incoherent funnel (per-ray slab tests, the only ones that stay
+    tight for scattered directions) on rays sorted by octant and origin
+    (dir_grid=0), so that a packet keeps its origins together."""
+
+    def closest(origins, dirs, tmin, tmax):
+        return cull.cull_closest(cull_bvh, origins, dirs, tmin, tmax, coherent=False)
+
+    def any_hit(origins, dirs, tmin, tmax):
+        return cull.cull_any(cull_bvh, origins, dirs, tmin, tmax, coherent=False)
+
+    return with_ray_sorting(closest), with_ray_sorting_any(any_hit)

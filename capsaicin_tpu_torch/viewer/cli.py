@@ -66,8 +66,7 @@ def main(argv=None):
     ap.add_argument("--output", type=int, default=0,
                     help="0=combined 1=direct 2=indirect 3=variance")
     ap.add_argument("--traversal", default="auto",
-                    choices=["auto", "brute", "bvh", "wavefront", "cull", "stream"],
-                    help="wavefront and cull are not ported and raise")
+                    choices=["auto", "brute", "bvh", "wavefront", "cull", "stream"])
     ap.add_argument("--lowres-indirect", action="store_true")
     ap.add_argument("--atlas-u32", action="store_true",
                     help="pack the texture atlas as rgba8 (R8G8B8A8 precision, a quarter "

@@ -26,7 +26,10 @@ renders on meshes of n x cuda:0 (RenderSession(mesh=...): gi1080 on 2 and
 8 row blocks and the colonnade through the BVH and the stream on 2, each
 held to the unsharded frame with every kernel launched n times its
 per-frame count, the EAW chain per block with its halo on 8 blocks of a
-1920x272 crop, ms/frame on 1, 2 and 8 blocks). Every
+1920x272 crop, ms/frame on 1, 2 and 8 blocks); last the plain-torch
+traversals, wavefront and cull, on the full colonnade (dense_phase: its
+four 1080p ray sets' subsamples held to K7, 1080p frames held to the BVH
+frame with their launches, the cull frames on 2 x cuda:0). Every
 kernel's time stands beside its
 bound: the largest of its bytes over 3.35 TB/s, its float32 operations
 over 67 TFLOP/s (the H100 SXM's HBM rate and float32 rate) and its
@@ -171,6 +174,15 @@ CONFIGS += [
     ("colonnade_stream_nosort", dict(COLONNADE_STREAM, options=dict(sort_bounce_rays=False)), 8,
      dict(STREAM_LAUNCHES, stream_count=0)),
 ]
+# The plain-torch traversals' phase (dense_phase): whole blocks of 128 rays
+# in each set's subsample, 1080p frames a mode (the wavefront's cut to one:
+# about a minute a frame on the H100, PERF.md) and mesh frames, and the
+# launches of each frame (its tracing is plain torch)
+DENSE_BLOCKS = SUBSAMPLE // 128
+DENSE_FRAMES = {"wavefront": 1, "cull": 3}
+DENSE_MESH_FRAMES = 2
+DENSE_LAUNCHES = dict(hit_attributes=3, eaw_disocclusion=1, eaw_stage=4, spatial_gather=1,
+                      static_trace=0, brute_trace=0, bvh_trace=0, stream_trace=0, stream_count=0)
 # The configuration (or phase) whose run is the path of a kernel not on the
 # flagship's
 PATH_OF = {"eaw_pair": "gi1080_eaw_fused1", "bvh_trace": "colonnade",
@@ -1535,6 +1547,145 @@ def mesh_phase(smi) -> dict:
     return path
 
 
+def dense_phase(smi):
+    """The plain-torch traversals, "wavefront" (ops/wavefront.py) and
+    "cull" (ops/cull.py), on the full colonnade. Traces: the four 1080p
+    ray sets of the BVH session's third frame, on subsamples of DENSE_BLOCKS
+    whole blocks of 128 rays evenly spaced (65,536 rays), through
+    wavefront_closest/wavefront_any and through the cull functions the
+    session uses (coherent for primary and shadow rays, the incoherent and
+    sorted make_bounce_fns for bounce and NEE), each held to K7 on the same
+    rays and timed with CUDA events, with the packets that took
+    wavefront's continuation stages and cull's retrace and rescue. Frames:
+    1920x1080 with default options through each mode, DENSE_FRAMES[mode]
+    frames from a reset held to the BVH session's (primary hit ids equal but on
+    edge or equal-depth pixels, display RMSE <= 1e-3), the launches of
+    each frame checked, ms/frame on the host clock, set-up seconds and
+    peak memory. Mesh: the cull frames on 2 x cuda:0 against the unsharded
+    ones (primary hit ids equal, display RMSE <= 1e-3)."""
+    import numpy as np
+    import torch
+
+    from capsaicin_tpu_torch import kernels as K
+    from capsaicin_tpu_torch.ops import bvh, cull, wavefront
+    from capsaicin_tpu_torch.parallel import make_mesh
+    from capsaicin_tpu_torch.render.traversal import make_bounce_fns
+
+    t_phase = time.perf_counter()
+    ref = make_session(W, H, "cuda", scene="colonnade", traversal="bvh")
+    calls = frame_rays(ref)
+    tris = torch.stack([ref.scene_dev.tri_v0, ref.scene_dev.tri_v1, ref.scene_dev.tri_v2], 1)
+    t0 = time.perf_counter()
+    wbvh = wavefront.build_wavefront_bvh(tris)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cbvh = cull.build_cull_bvh(tris)
+    torch.cuda.synchronize()
+    print(f"dense builds on the colonnade's {tris.shape[0]} triangles: wavefront "
+          f"{t1 - t0:.3f} s ({wbvh.n_leaves} rows), cull {time.perf_counter() - t1:.3f} s "
+          f"(depth {cbvh.depth}, levels {cbvh.coh_level}/{cbvh.inc_level})")
+    bounce = make_bounce_fns(cbvh)
+    for name, (kind, o, d, tmin, tmax) in zip(("primary", "shadow", "bounce", "nee"), calls):
+        any_hit = kind == "any"
+        n = o.shape[0]
+        blocks = torch.arange(0, n // 128, (n // 128) // DENSE_BLOCKS, device=o.device)
+        idx = (blocks[:DENSE_BLOCKS, None] * 128 + torch.arange(128, device=o.device)).reshape(-1)
+        so, sd, stm = o[idx].contiguous(), d[idx].contiguous(), tmax[idx].contiguous()
+        want = bvh.bvh_trace(ref.accel, so, sd, tmin, stm, any_hit)
+        if name in ("bounce", "nee"):
+            cull_fn = bounce[1 if any_hit else 0]
+        else:
+            cull_fn = functools.partial(cull.cull_any if any_hit else cull.cull_closest, cbvh)
+        wave_fn = functools.partial(
+            wavefront.wavefront_any if any_hit else wavefront.wavefront_closest, wbvh)
+        for mode, fn in (("wavefront", wave_fn), ("cull", cull_fn)):
+            wavefront.STATS.update(continued=0, stages=0)
+            cull.STATS.update(retraced=0, rescued=0)
+            got, ms = timed(lambda: fn(so, sd, tmin, stm))
+            what = f"dense {mode} {kind} ({name}, {len(idx)} rays) vs K7"
+            if any_hit:
+                hold_any(what, got, want)
+            else:
+                hold_hits(what, tuple(got[k] for k in ("t", "u", "v", "prim")), want,
+                          hits_only=True)
+            work = (f"{wavefront.STATS['continued']} of {-(-len(idx) // wavefront.LANE)} "
+                    f"packets continued, {wavefront.STATS['stages']} stages" if mode == "wavefront"
+                    else f"{cull.STATS['retraced']} of {-(-len(idx) // cull.G)} packets "
+                    f"retraced, {cull.STATS['rescued']} rescued")
+            print(f"{what}: {ms:.1f} ms a call; {work}")
+
+    # frames: each mode from a reset against the BVH session's frames
+    want, state = [], ref.state
+    for _ in range(max(DENSE_FRAMES.values())):
+        display, state, aux = ref.frame(state=state, collect_aux=True)
+        want.append((display.cpu().numpy(), aux.gbuffer_prim, aux.gbuffer_bary, aux.nd_depth))
+
+    def hold_frame(what, display, aux, frame):
+        w_display, w_prim, w_bary, w_depth = want[frame]
+        diff = aux.gbuffer_prim != w_prim
+        edge = torch.zeros_like(diff)
+        for pr, b in ((aux.gbuffer_prim, aux.gbuffer_bary), (w_prim, w_bary)):
+            edge |= (pr >= 0) & ((b[..., 0] < 1e-5) | (b[..., 1] < 1e-5)
+                                 | (1.0 - b[..., 0] - b[..., 1] < 1e-5))
+        tie = (aux.nd_depth - w_depth).abs() <= 1e-4 * w_depth.abs()
+        img = display.cpu().numpy()
+        rmse = float(np.sqrt(np.mean((img.astype(np.float64) - w_display) ** 2)))
+        print(f"{what}: {int(diff.sum())} of {W * H} primary hit ids differ from the BVH "
+              f"frame's ({int((diff & ~edge & ~tie).sum())} off edges and ties), display RMSE "
+              f"{rmse:.3g}")
+        check(not bool((diff & ~edge & ~tie).any()),
+              f"{what}: a primary hit id differs off the edges and ties")
+        check(bool(np.isfinite(img).all()) and rmse <= RMSE_BAR, f"{what}: display RMSE {rmse}")
+        return aux.gbuffer_prim, img
+
+    unsharded = {}
+    for mode in ("wavefront", "cull"):
+        torch.cuda.reset_peak_memory_stats()
+        s = make_session(W, H, "cuda", scene="colonnade", traversal=mode)
+        wavefront.STATS.update(continued=0, stages=0)
+        cull.STATS.update(retraced=0, rescued=0)
+        K.reset_counts()
+        state, times, out = s.state, [], []
+        for f in range(DENSE_FRAMES[mode]):
+            t0 = time.perf_counter()
+            display, state, aux = s.frame(state=state, collect_aux=True)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            out.append(hold_frame(f"dense {mode} 1080p frame {f + 1}", display, aux, f))
+        launches = {k.name: k.launches for k in K.REGISTRY}
+        check_launches(launches, DENSE_LAUNCHES, DENSE_FRAMES[mode], f"dense {mode} frames")
+        unsharded[mode] = out
+        work = (f"{wavefront.STATS['continued']} packets continued over "
+                f"{wavefront.STATS['stages']} stages" if mode == "wavefront" else
+                f"{cull.STATS['retraced']} packets retraced, {cull.STATS['rescued']} rescued")
+        print(f"dense {mode} colonnade 1080p: set-up {s.setup_s:.3f} s; ms/frame "
+              f"{[round(t, 1) for t in times]} (host clock, each synchronised); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {work} over "
+              f"{DENSE_FRAMES[mode]} frames; launches {launches}; {smi}")
+        del s
+
+    # the cull frames on a mesh of 2 x cuda:0
+    s = make_session(W, H, "cuda", scene="colonnade", traversal="cull",
+                     mesh=make_mesh(["cuda:0"] * 2))
+    K.reset_counts()
+    state = s.state
+    for f in range(DENSE_MESH_FRAMES):
+        t0 = time.perf_counter()
+        display, state, aux = s.frame(state=state, collect_aux=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        prim, img = unsharded["cull"][f]
+        ids = int((aux.gbuffer_prim != prim).sum())
+        rmse = float(np.sqrt(np.mean((display.cpu().numpy().astype(np.float64) - img) ** 2)))
+        print(f"dense cull mesh of 2 x cuda:0, frame {f + 1}: {ids} primary hit ids differ from "
+              f"the unsharded frame's, display RMSE {rmse:.3g}, {ms:.1f} ms")
+        check(ids == 0 and rmse <= RMSE_BAR, f"dense cull mesh frame {f + 1}: {ids} ids, {rmse}")
+    check_launches({k.name: k.launches for k in K.REGISTRY},
+                   {k: 2 * v for k, v in DENSE_LAUNCHES.items()}, DENSE_MESH_FRAMES,
+                   "dense cull mesh frames")
+    print(f"phase dense: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1625,7 +1776,11 @@ def main() -> int:
                       ("colonnade(target_tris=20000), bvh",
                        dict(scene="colonnade20k", traversal="bvh")),
                       ("colonnade(target_tris=20000), stream",
-                       dict(scene="colonnade20k", traversal="stream"))):
+                       dict(scene="colonnade20k", traversal="stream")),
+                      ("colonnade(target_tris=20000), wavefront",
+                       dict(scene="colonnade20k", traversal="wavefront")),
+                      ("colonnade(target_tris=20000), cull",
+                       dict(scene="colonnade20k", traversal="cull"))):
         images = {}
         for device in ("cuda", "cpu"):
             small = make_session(SMALL, SMALL, device, **cfg)
@@ -1650,6 +1805,9 @@ def main() -> int:
     for name in ("static_trace", "hit_attributes", "spatial_gather", "eaw_disocclusion",
                  "eaw_stage", "eaw_pair", "bvh_trace", "stream_trace", "stream_count"):
         check(mesh_path[name] > 0, f"{name} was never launched on the mesh path")
+
+    # 10. the plain-torch traversals, wavefront and cull, on the colonnade
+    dense_phase(smi)
 
     kernels = [
         dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,

@@ -188,11 +188,11 @@ def test_auto_takes_the_bvh_above_128_triangles():
     assert resolve_mode("auto", 128) == "static"
     assert resolve_mode("auto", 129) == "bvh"
     assert resolve_mode("auto", 249_190) == "bvh"
-    for mode in ("brute", "bvh", "static", "stream"):
+    for mode in ("brute", "bvh", "static", "stream", "wavefront", "cull"):
         assert resolve_mode(mode, 40) == mode
     s = _session(8, 8, traversal="auto")
     s.set_scene(build_scene(colonnade(target_tris=SMALL)))
     assert isinstance(s.accel, bvh.DeviceBVH) and s._sorted_trace is not None
     assert s.accel.leaf_size == bvh.LEAF_SIZE
-    with pytest.raises(NotImplementedError):
-        resolve_mode("wavefront", 40)
+    with pytest.raises(ValueError):
+        resolve_mode("walk", 40)

@@ -18,7 +18,9 @@ smaller than its tile and on the tap's edge cases. A mesh session of 2 or
 8 x cuda:0 (parallel.sharding) bit-equal to the unsharded session through
 K1 and K7 (the stream within display RMSE 1e-3: its bounce sub-packets
 differ per block), with n times the launches; the EAW chain per row block
-with its halo bit-equal to the unsharded chain.
+with its halo bit-equal to the unsharded chain. The wavefront and cull
+traversals (plain torch) render colonnade(target_tris=20000) at 64x64
+within display RMSE 1e-3 of the CPU.
 
 Marked `cuda`: each test skips, with the reason, where CUDA is unavailable
 (the decision is taken inside the fixture, never at import). On a machine
@@ -385,6 +387,20 @@ def test_cuda_frames_match_cpu_frames(dev):
     assert np.sqrt(np.mean((images["cuda"] - images["cpu"]) ** 2)) <= 1e-3
 
 
+@pytest.mark.parametrize("traversal", ["wavefront", "cull"])
+def test_dense_traversal_frames_match_cpu_frames(dev, traversal):
+    """The plain-torch traversals (ops.wavefront, ops.cull) on the card:
+    colonnade(target_tris=20000) at 64x64, 3 frames, against the CPU."""
+    images = {}
+    for device in (dev, "cpu"):
+        s = RenderSession(64, 64, device=device, traversal=traversal)
+        s.set_camera(make_camera("colonnade", 64, 64))
+        s.set_scene(build_scene(colonnade(target_tris=20_000)))
+        for _ in range(3):
+            images[str(device)] = s.render()
+    assert np.sqrt(np.mean((images["cuda"] - images["cpu"]) ** 2)) <= 1e-3
+
+
 def _hall_rays(dev, n, seed):
     """Rays from inside the colonnade's hall in random directions; every
     7th dead (tmax = -1)."""
@@ -411,6 +427,36 @@ def _hits_agree(got, want, bar=1e-3):
     same = ~diff
     for a, b in ((t, tw), (u, uw), (v, vw)):
         torch.testing.assert_close(a[same], b[same], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("traversal", ["wavefront", "cull_coherent", "cull_incoherent"])
+def test_dense_traversal_traces_match_cpu(dev, traversal):
+    """ops.wavefront (its walk replayed as a CUDA graph) and ops.cull on the
+    card against the same code on the CPU: 4,096 hall rays in random
+    directions (the continuation stages, the retrace and the rescue all
+    run) on colonnade(target_tris=20000)."""
+    from capsaicin_tpu_torch.ops import cull, wavefront
+
+    tris = torch.from_numpy(np.stack([getattr(build_scene(colonnade(target_tris=20_000)), f)
+                                      for f in ("tri_v0", "tri_v1", "tri_v2")], 1))
+    rays = _hall_rays(dev, 4096, 7)
+    if traversal == "wavefront":
+        accel = {d: wavefront.build_wavefront_bvh(tris, device=d) for d in (dev, "cpu")}
+        fns = (wavefront.wavefront_closest, wavefront.wavefront_any)
+        kw = {}
+    else:
+        accel = {d: cull.build_cull_bvh(tris, device=d) for d in (dev, "cpu")}
+        fns = (cull.cull_closest, cull.cull_any)
+        kw = dict(coherent=traversal == "cull_coherent")
+    out = {}
+    for d in (dev, "cpu"):
+        o, dirs, tmax = (x.to(d) for x in rays)
+        hit = fns[0](accel[d], o, dirs, 0.0, tmax, **kw)
+        out[str(torch.device(d).type)] = (tuple(hit[k].cpu() for k in ("t", "u", "v", "prim")),
+                                          fns[1](accel[d], o, dirs, 1e-4, tmax, **kw).cpu())
+    _hits_agree(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert int((out["cpu"][0][3] >= 0).sum()) > 2000
 
 
 def _ordered_equal(got, host, o, d, tmin, tmax, any_hit):

@@ -205,16 +205,21 @@ def test_session_raises_on_unported_options(kw):
                                atol=1e-3)
 
 
-def test_session_raises_on_unported_scenes_and_traversal():
-    """The pure-XLA traversals, which are not to be ported, raise; a
-    textured scene (from the JAX package's host Scene, with either atlas)
-    renders."""
+def test_session_renders_textured_scenes_and_every_traversal():
+    """The wavefront and cull traversals render a finite 16x16 Cornell frame
+    with the sky in the corner; a textured scene (from the JAX package's
+    host Scene, with either atlas) renders."""
     from capsaicin_tpu.scene.scene import quantize_atlas as jquantize_atlas
 
     for mode in ("wavefront", "cull"):
-        session = RenderSession(W, H, device="cpu", traversal=mode)
-        with pytest.raises(NotImplementedError):
-            session.set_scene(build_scene(cornell_box()))
+        session = RenderSession(16, 16, device="cpu", traversal=mode)
+        session.set_camera(make_camera("cornell", 16, 16))
+        session.set_scene(build_scene(cornell_box()))
+        assert session._mode == mode
+        image = session.render()
+        assert image.shape == (16, 16, 3) and np.isfinite(image).all()
+        np.testing.assert_allclose(image[0, 0], np.float32([0.7, 0.7, 0.85]) ** (1.0 / 2.2),
+                                   atol=1e-3)
     textured = jbuild_scene(*jcornell_box_textured())
     images = [_render_16(RenderOptions(), scene, frames=1)
               for scene in (textured, jquantize_atlas(textured))]

@@ -97,9 +97,9 @@ def test_cli_needs_cuda_unless_asked_for_the_cpu(monkeypatch, tmp_path):
         cli.main(["--width", str(S), "--height", str(S), "--frames", "1",
                   "--out", str(tmp_path / "x.png")])
     assert not (tmp_path / "x.png").exists()
-    with pytest.raises(NotImplementedError):  # not ported: raises from the session
-        cli.main(["--device", "cpu", "--traversal", "wavefront", "--width", str(S),
-                  "--height", str(S), "--frames", "1", "--out", str(tmp_path / "x.png")])
+    assert cli.main(["--device", "cpu", "--traversal", "wavefront", "--width", str(S),
+                     "--height", str(S), "--frames", "1", "--out", str(tmp_path / "x.png")]) == 0
+    assert (tmp_path / "x.png").exists()
 
 
 def test_cli_obj_and_timings(tmp_path, capsys):
