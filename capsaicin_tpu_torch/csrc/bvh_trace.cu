@@ -62,6 +62,15 @@
 // tmax). An any-hit ray returns at its first accepted hit; a dead ray
 // (tmax < tmin) does no work. Built with --fmad=false, like every kernel
 // here, so that hits on triangle edges agree with the plain version.
+//
+// Counting build (COUNT, taken while a profiler records): each thread adds
+// up the rays it walks (live ones), the child boxes it tests (the slots
+// that hold triangles, of every record it fetches) and the triangles it
+// tests (Moller-Trumbore tests of real slots); at its exit each warp adds
+// its sums into three int64 words with one atomicAdd each. It changes no
+// result. The box tests of a lane include those it makes while it holds a
+// leaf, so they depend on the warp's other rays; the rays and triangle
+// tests do not. The plain build (COUNT false) is the kernel as it was.
 #include <climits>
 #include <cuda_runtime.h>
 
@@ -93,17 +102,23 @@ __device__ __forceinline__ bool slab(const Ray& r, float lx, float ly, float lz,
   return fmaxf(t_near, r.tmin) <= fminf(t_far, t_best);
 }
 
+// A thread's work, summed by the counting build only.
+struct Work {
+  unsigned rays, boxes, tris;
+};
+
 // The triangles of one leaf, in slot order. Returns true on an accepted
 // hit when ANY is set (the caller stops there).
-template <bool ANY>
+template <bool ANY, bool COUNT>
 __device__ __forceinline__ bool leaf_test(const float4* __restrict__ tris, int leaf,
                                           int leaf_size, const Ray& r, float& t_best,
-                                          float& bu, float& bv, int& prim) {
+                                          float& bu, float& bv, int& prim, Work& w) {
   const float4* tr = tris + 3 * (size_t)leaf * leaf_size;
   for (int j = 0; j < leaf_size; ++j, tr += 3) {
     const float4 a = __ldg(tr);
     const int tid = __float_as_int(a.w);
     if (tid < 0) break;
+    if (COUNT) ++w.tris;
     const float4 e1 = __ldg(tr + 1), e2 = __ldg(tr + 2);
     const float px = r.dy * e2.z - r.dz * e2.y;
     const float py = r.dz * e2.x - r.dx * e2.z;
@@ -179,7 +194,7 @@ __device__ __forceinline__ void test_slots(const float4* __restrict__ wide, int 
   s.r3 = ref.w;
 }
 
-template <bool ANY>
+template <bool ANY, bool COUNT>
 __device__ __forceinline__ void trace_ray(int i, const float* __restrict__ origins,
                                           const float* __restrict__ dirs, float tmin,
                                           const float* __restrict__ tmax,
@@ -188,7 +203,7 @@ __device__ __forceinline__ void trace_ray(int i, const float* __restrict__ origi
                                           Stack& stack, float* __restrict__ t_out,
                                           float* __restrict__ u_out, float* __restrict__ v_out,
                                           int* __restrict__ prim_out,
-                                          unsigned char* __restrict__ hit_out) {
+                                          unsigned char* __restrict__ hit_out, Work& w) {
   Ray r;
   r.ox = origins[3 * i];
   r.oy = origins[3 * i + 1];
@@ -202,6 +217,7 @@ __device__ __forceinline__ void trace_ray(int i, const float* __restrict__ origi
   int prim = -1;
 
   if (t_best >= tmin) {
+    if (COUNT) ++w.rays;
     r.ix = safe_inv(r.dx);
     r.iy = safe_inv(r.dy);
     r.iz = safe_inv(r.dz);
@@ -225,6 +241,9 @@ __device__ __forceinline__ void trace_ray(int i, const float* __restrict__ origi
         } else {  // a record: test its slots, go to the first passed
           Slots sl;
           test_slots(wide_o, cur, r, t_best, sl);
+          if (COUNT)
+            w.boxes += (sl.r0 != BVH_EMPTY) + (sl.r1 != BVH_EMPTY) + (sl.r2 != BVH_EMPTY) +
+                       (sl.r3 != BVH_EMPTY);
           // push the passed slots after the first, last first
           cur = BVH_DONE;
 #define BVH_VISIT(h, rr, tt)                                               \
@@ -243,7 +262,8 @@ __device__ __forceinline__ void trace_ray(int i, const float* __restrict__ origi
         if (!__any_sync(__activemask(), held == BVH_DONE)) break;  // all hold a leaf
       }
       if (held != BVH_DONE) {
-        if (t_held <= t_best && leaf_test<ANY>(tris, ~held, leaf_size, r, t_best, bu, bv, prim))
+        if (t_held <= t_best &&
+            leaf_test<ANY, COUNT>(tris, ~held, leaf_size, r, t_best, bu, bv, prim, w))
           break;
         held = BVH_DONE;
       } else if (cur == BVH_DONE) {
@@ -263,16 +283,19 @@ __device__ __forceinline__ void trace_ray(int i, const float* __restrict__ origi
 
 // (BVH_BLOCK, 1): with the block size alone ptxas kept 48 registers and
 // spilled 12 bytes to local memory; with a minimum of one block it takes 56
-// and spills nothing.
-template <bool ANY>
+// and spills nothing. `counts` (COUNT only): the int64 sums of the rays,
+// box tests and triangle tests.
+template <bool ANY, bool COUNT>
 __global__ void __launch_bounds__(BVH_BLOCK, 1) bvh_trace_kernel(
     const float* __restrict__ origins, const float* __restrict__ dirs, float tmin,
     const float* __restrict__ tmax, const float4* __restrict__ wide, int n_wide,
     const float4* __restrict__ tris, int n_rays, int leaf_size, int tile_w,
     int* __restrict__ counter, float* __restrict__ t_out, float* __restrict__ u_out,
-    float* __restrict__ v_out, int* __restrict__ prim_out, unsigned char* __restrict__ hit_out) {
+    float* __restrict__ v_out, int* __restrict__ prim_out, unsigned char* __restrict__ hit_out,
+    unsigned long long* __restrict__ counts) {
   Stack stack{bvh_stack + threadIdx.x, 0};
   const int lane = threadIdx.x & 31;
+  Work w{0u, 0u, 0u};
   while (true) {
     int base = 0;
     if (lane == 0) base = atomicAdd(counter, 32);
@@ -285,27 +308,42 @@ __global__ void __launch_bounds__(BVH_BLOCK, 1) bvh_trace_kernel(
       i = ((ty << 2) + (lane >> 3)) * tile_w + (tx << 3) + (lane & 7);
     }
     if (i < n_rays)
-      trace_ray<ANY>(i, origins, dirs, tmin, tmax, wide, n_wide, tris, leaf_size, stack, t_out,
-                     u_out, v_out, prim_out, hit_out);
+      trace_ray<ANY, COUNT>(i, origins, dirs, tmin, tmax, wide, n_wide, tris, leaf_size, stack,
+                            t_out, u_out, v_out, prim_out, hit_out, w);
     __syncwarp();
+  }
+  if (COUNT) {  // every lane of the warp left the loop together
+    const unsigned rays = __reduce_add_sync(0xffffffffu, w.rays);
+    const unsigned boxes = __reduce_add_sync(0xffffffffu, w.boxes);
+    const unsigned tests = __reduce_add_sync(0xffffffffu, w.tris);
+    if (lane == 0) {
+      atomicAdd(counts, (unsigned long long)rays);
+      atomicAdd(counts + 1, (unsigned long long)boxes);
+      atomicAdd(counts + 2, (unsigned long long)tests);
+    }
   }
 }
 
-static void* bvh_kernel_of(int any_hit) {
-  return any_hit ? reinterpret_cast<void*>(bvh_trace_kernel<true>)
-                 : reinterpret_cast<void*>(bvh_trace_kernel<false>);
+static void* bvh_kernel_of(int any_hit, int count) {
+  if (count)
+    return any_hit ? reinterpret_cast<void*>(bvh_trace_kernel<true, true>)
+                   : reinterpret_cast<void*>(bvh_trace_kernel<false, true>);
+  return any_hit ? reinterpret_cast<void*>(bvh_trace_kernel<true, false>)
+                 : reinterpret_cast<void*>(bvh_trace_kernel<false, false>);
 }
 
 // Launches K7 on `grid` blocks whose threads keep `stack_entries` each in
 // shared memory; `counter` is a zeroed int. With tile_w (a multiple of 8
 // that divides n_rays / 4) the rays are pixels of rows of tile_w and a
-// warp takes an 8x4 tile of them; 0 takes 32 consecutive rays.
+// warp takes an 8x4 tile of them; 0 takes 32 consecutive rays. With
+// `counts` (three int64 words, not null) the counting build runs and adds
+// the rays walked, box tests and triangle tests to them.
 extern "C" int bvh_trace(const float* origins, const float* dirs, float tmin,
                          const float* tmax, const float* wide, int n_wide, const float* tris,
                          int n_rays, int leaf_size, int tile_w, int stack_entries, int any_hit,
                          int grid, int* counter, float* t_out, float* u_out, float* v_out,
-                         int* prim_out, unsigned char* hit_out, int device,
-                         cudaStream_t stream) {
+                         int* prim_out, unsigned char* hit_out, unsigned long long* counts,
+                         int device, cudaStream_t stream) {
   cudaSetDevice(device);
   if (n_wide < 1 || leaf_size < 1 || stack_entries < 1 || stack_entries > BVH_MAX_STACK ||
       grid < 1 || tile_w < 0 || (tile_w && (tile_w % 8 || n_rays % (4 * tile_w))))
@@ -314,31 +352,36 @@ extern "C" int bvh_trace(const float* origins, const float* dirs, float tmin,
     const size_t shared = (size_t)stack_entries * BVH_BLOCK * sizeof(int2);
     const float4* w = reinterpret_cast<const float4*>(wide);
     const float4* tr = reinterpret_cast<const float4*>(tris);
-    if (any_hit)
-      bvh_trace_kernel<true><<<grid, BVH_BLOCK, shared, stream>>>(
-          origins, dirs, tmin, tmax, w, n_wide, tr, n_rays, leaf_size, tile_w, counter, t_out,
-          u_out, v_out, prim_out, hit_out);
-    else
-      bvh_trace_kernel<false><<<grid, BVH_BLOCK, shared, stream>>>(
-          origins, dirs, tmin, tmax, w, n_wide, tr, n_rays, leaf_size, tile_w, counter, t_out,
-          u_out, v_out, prim_out, hit_out);
+#define BVH_LAUNCH(ANY, COUNT)                                                           \
+  bvh_trace_kernel<ANY, COUNT><<<grid, BVH_BLOCK, shared, stream>>>(                     \
+      origins, dirs, tmin, tmax, w, n_wide, tr, n_rays, leaf_size, tile_w, counter, t_out, \
+      u_out, v_out, prim_out, hit_out, counts)
+    if (counts) {
+      if (any_hit) BVH_LAUNCH(true, true);
+      else BVH_LAUNCH(false, true);
+    } else {
+      if (any_hit) BVH_LAUNCH(true, false);
+      else BVH_LAUNCH(false, false);
+    }
+#undef BVH_LAUNCH
   }
   return (int)cudaGetLastError();
 }
 
-// K7's build on `device` with `stack_entries` a thread: out[0] registers a
-// thread, [1] local bytes a thread, [2] static shared bytes, [3] dynamic
-// shared bytes a block, [4] resident blocks of BVH_BLOCK threads an SM, [5]
-// the SMs.
-extern "C" int bvh_trace_info(int any_hit, int stack_entries, int* out, int device) {
+// K7's build (`count`: the counting build) on `device` with `stack_entries`
+// a thread: out[0] registers a thread, [1] local bytes a thread, [2] static
+// shared bytes, [3] dynamic shared bytes a block, [4] resident blocks of
+// BVH_BLOCK threads an SM, [5] the SMs.
+extern "C" int bvh_trace_info(int any_hit, int count, int stack_entries, int* out,
+                              int device) {
   cudaSetDevice(device);
   if (stack_entries < 1 || stack_entries > BVH_MAX_STACK) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, bvh_kernel_of(any_hit));
+  cudaError_t err = cudaFuncGetAttributes(&attr, bvh_kernel_of(any_hit, count));
   if (err != cudaSuccess) return (int)err;
   const int shared = stack_entries * BVH_BLOCK * (int)sizeof(int2);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bvh_kernel_of(any_hit),
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bvh_kernel_of(any_hit, count),
                                                       BVH_BLOCK, shared);
   if (err != cudaSuccess) return (int)err;
   int sms = 0;

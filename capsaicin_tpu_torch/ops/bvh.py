@@ -30,6 +30,13 @@ A miss returns t = tmax, u = v = 0 and prim = -1, as K1 and the stackless
 walk (ops.traverse, the plain version) do; a dead ray (tmax < tmin) does
 no work. On CPU tensors the wrappers run the plain version.
 
+While a profiler records (render.profiling.recording), a launch takes K7's
+counting build, which changes no result: it adds the rays it walks, the
+child boxes it tests and the triangles it tests into three int64 words,
+which go to the counters `bvh.rays`, `bvh.box_tests` and `bvh.tri_tests`
+(render.profiling.count). Otherwise K7 runs its plain build, which counts
+nothing.
+
 Not carried over from the TPU kernel, since none of them changes a result:
 the 128-lane row packing, the split of scenes above 150k triangles into
 chunks (global memory holds the whole colonnade: 21.3 MB of octant
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from .. import kernels as K
+from ..render import profiling
 from . import lbvh, traverse
 from .traverse import pair_codes
 
@@ -68,7 +76,7 @@ MAX_DEPTH = 30
 K7 = K.register(K.Kernel(
     "bvh_trace", "bvh_trace",
     [K.vp, K.vp, K.f32, K.vp, K.vp, K.i32, K.vp, K.i32, K.i32, K.i32, K.i32, K.i32, K.i32,
-     K.vp, K.vp, K.vp, K.vp, K.vp, K.vp],
+     K.vp, K.vp, K.vp, K.vp, K.vp, K.vp, K.vp],
     source="capsaicin_tpu_torch/csrc/bvh_trace.cu",
     replaces="capsaicin_tpu/ops/pallas_traverse.py:249",
 ))
@@ -213,16 +221,20 @@ def build_bvh(tris, leaf_size: int = LEAF_SIZE, device=None) -> DeviceBVH:
                      torch.from_numpy(pack_tris(host)).to(device))
 
 
+COUNTERS = ("bvh.rays", "bvh.box_tests", "bvh.tri_tests")  # the counting build's words
+
+
 @functools.lru_cache(maxsize=None)
-def kernel_info(device_index: int, any_hit: bool, depth: int) -> dict:
-    """K7's build on a card for a tree of `depth`, from
-    cudaFuncGetAttributes and the occupancy API: registers a thread, local
-    (spilled or stack) bytes a thread, static and dynamic (the stacks')
-    shared bytes a block, resident blocks of BLOCK threads an SM and warps
-    an SM, and the SMs."""
+def kernel_info(device_index: int, any_hit: bool, depth: int, counting: bool = False) -> dict:
+    """K7's build on a card for a tree of `depth` (with `counting`, its
+    counting build), from cudaFuncGetAttributes and the occupancy API:
+    registers a thread, local (spilled or stack) bytes a thread, static and
+    dynamic (the stacks') shared bytes a block, resident blocks of BLOCK
+    threads an SM and warps an SM, and the SMs."""
     out = (ctypes.c_int * 6)()
-    err = K.call("bvh_trace_info", [K.i32, K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
-                 int(any_hit), stack_entries(depth), out, device_index)
+    err = K.call("bvh_trace_info",
+                 [K.i32, K.i32, K.i32, ctypes.POINTER(ctypes.c_int), K.i32],
+                 int(any_hit), int(counting), stack_entries(depth), out, device_index)
     if err != 0:
         raise RuntimeError(f"bvh_trace_info: CUDA error {err}")
     info = dict(zip(("registers", "local_bytes", "shared_bytes", "dynamic_shared_bytes",
@@ -247,7 +259,8 @@ def bvh_trace(accel: DeviceBVH, origins, dirs, tmin: float, tmax, any_hit: bool,
     On the card the grid is the resident blocks (at most one a BLOCK rays)
     and each warp takes 32 rays at a time from a zeroed counter; rays in
     pixel order with rows of `pixel_width` go as 8x4 tiles (tile_of), which
-    changes no result."""
+    changes no result. While a profiler records, the counting build runs
+    and its counts go to render.profiling's counters (module doc)."""
     n = origins.shape[0]
     if isinstance(tmax, torch.Tensor):
         tmax = tmax.to(torch.float32).expand(n).contiguous()
@@ -266,22 +279,29 @@ def bvh_trace(accel: DeviceBVH, origins, dirs, tmin: float, tmax, any_hit: bool,
                            ("tmax", tmax, (n,)), ("wide", accel.wide, (8 * n_wide, WIDE_FLOATS)),
                            ("tris", accel.tris, (accel.n_leaves * accel.leaf_size, 12))):
         K.check_cuda(x, name, torch.float32, shape, dev, align=16 if x.dim() == 2 else 1)
-    info = kernel_info(dev.index or 0, any_hit, accel.depth)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev) if profiling.recording() else None
+    info = kernel_info(dev.index or 0, any_hit, accel.depth, counts is not None)
     grid = max(1, min(info["ctas_per_sm"] * info["sms"], -(-n // BLOCK)))
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     args = (K.ptr(origins), K.ptr(dirs), float(tmin), K.ptr(tmax), K.ptr(accel.wide), n_wide,
             K.ptr(accel.tris), n, accel.leaf_size, tile_of(n, pixel_width),
             stack_entries(accel.depth), int(any_hit), grid, K.ptr(counter))
+    counts_ptr = None if counts is None else K.ptr(counts)
     if any_hit:
         hit = torch.empty(n, dtype=torch.bool, device=dev)
-        K7.launch(dev, *args, None, None, None, None, K.ptr(hit))
-        return hit
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    prim = torch.empty(n, dtype=torch.int32, device=dev)
-    K7.launch(dev, *args, K.ptr(t), K.ptr(u), K.ptr(v), K.ptr(prim), None)
-    return t, u, v, prim
+        K7.launch(dev, *args, None, None, None, None, K.ptr(hit), counts_ptr)
+        out = hit
+    else:
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        u = torch.empty_like(t)
+        v = torch.empty_like(t)
+        prim = torch.empty(n, dtype=torch.int32, device=dev)
+        K7.launch(dev, *args, K.ptr(t), K.ptr(u), K.ptr(v), K.ptr(prim), None, counts_ptr)
+        out = t, u, v, prim
+    if counts is not None:
+        for name, c in zip(COUNTERS, counts):
+            profiling.count(name, c)
+    return out
 
 
 def bvh_closest(accel: DeviceBVH, origins, dirs, tmin: float = 0.0, tmax=1e6,

@@ -27,7 +27,7 @@ from ..ops import camera as cam
 from ..ops import color as col
 from ..ops import mathops as m
 from ..ops import resample, sampling, stencil
-from . import shading
+from . import profiling, shading
 from .settings import (
     OUTPUT_COMBINED,
     OUTPUT_DIRECT,
@@ -104,6 +104,7 @@ def trace_primary(closest_fn, camera, width, height, frame_count: int, rows=None
     y0, y1 = rows or (0, height)
     xy = cam.pixel_grid(width, y1 - y0, camera.position.device, row0=y0)
     o, d = cam.create_primary_rays(camera, xy, (width, height), frame_count)
+    profiling.count_rays("primary", width * (y1 - y0), 0.0, 1e6)
     hit = closest_fn(_flat(o), _flat(d), 0.0, 1e6)
     return {
         "bary": _unflat(torch.stack([hit["u"], hit["v"]], -1), y1 - y0, width),
@@ -130,6 +131,7 @@ def direct_lighting(scene, any_fn, camera, gb, width, height, frame_count: int,
     # from the light) get tmax < tmin, which the trace retires at once
     live = ~miss & ~black & (unshadowed > 0.0).any(-1)
     stmax = torch.where(live, shading.LIGHT_DISTANCE, -1.0)
+    profiling.count_rays("shadow", stmax.shape[0], shading.SHADOW_TMIN, stmax)
     shadow_hit = any_fn(p, ldir, shading.SHADOW_TMIN, stmax)
     di = torch.where(shadow_hit[:, None], 0.0, unshadowed)
 
@@ -252,14 +254,16 @@ def indirect_gi(scene, closest_fn, any_fn, camera, prev_camera, gb, combined_his
         if bounce != 0:
             ldir, unshadowed = shading.direct_illumination_terms(p, n, kd, frame_count)
             if options.gbuffer_feedback:
-                hist, disocc = _feedback_fetch(
-                    p, prev_camera, combined_history, prev_nd["depth"], width, height)
+                with profiling.span("gi.feedback_fetch"):
+                    hist, disocc = _feedback_fetch(
+                        p, prev_camera, combined_history, prev_nd["depth"], width, height)
                 reuse = active & ~disocc
                 color = torch.where(reuse[:, None], color + throughput * hist, color)
                 active = active & disocc
             nee_live = active & (unshadowed > 0.0).any(-1)
-            shadow_hit = (any_bounce_fn or any_fn)(
-                p, ldir, shading.SHADOW_TMIN, torch.where(nee_live, shading.LIGHT_DISTANCE, -1.0))
+            nee_tmax = torch.where(nee_live, shading.LIGHT_DISTANCE, -1.0)
+            profiling.count_rays("nee", npix, shading.SHADOW_TMIN, nee_tmax)
+            shadow_hit = (any_bounce_fn or any_fn)(p, ldir, shading.SHADOW_TMIN, nee_tmax)
             color = color + torch.where(
                 (nee_live & ~shadow_hit)[:, None], throughput * unshadowed, 0.0)
 
@@ -276,7 +280,9 @@ def indirect_gi(scene, closest_fn, any_fn, camera, prev_camera, gb, combined_his
         if bounce != 0:
             throughput = throughput * kd
         # inactive lanes trace with tmax < tmin: the trace retires them
-        hit = (closest_bounce_fn or closest_fn)(p, d, 1e-4, torch.where(active, 1e5, -1.0))
+        bounce_tmax = torch.where(active, 1e5, -1.0)
+        profiling.count_rays("bounce", npix, 1e-4, bounce_tmax)
+        hit = (closest_bounce_fn or closest_fn)(p, d, 1e-4, bounce_tmax)
         prim = torch.where(active, hit["prim"], -1)
         u, v = hit["u"], hit["v"]
 

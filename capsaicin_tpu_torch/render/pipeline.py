@@ -21,17 +21,14 @@ from ..ops import resample, stencil
 from ..ops.camera import Camera, camera_to
 from ..parallel import sharding as sh
 from . import passes, shading
+from .profiling import span as _span
 from .settings import RenderOptions, Settings
 
 
 # The frame's passes, each under a profiler range of this name
-# (render.profiling reads them; outside a profiler a range costs ~1 us).
+# (render.profiling.span: outside a profiler a range costs one flag test).
 PASS_NAMES = ("trace_primary", "direct_lighting", "indirect_gi", "spatial_gather",
               "reproject", "svgf_accumulate", "denoise", "combine_taa", "composite")
-
-
-def _span(name: str):
-    return torch.profiler.record_function(name)
 
 
 def _timed(timer, name: str):

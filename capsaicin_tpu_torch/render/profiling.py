@@ -22,6 +22,21 @@ intervals that no earlier device work covers. Needs a CUDA session; run on a GPU
     python -m capsaicin_tpu_torch.render.profiling --scene colonnade --traversal stream \
         --stream-block 64
     python -m capsaicin_tpu_torch.render.profiling --scene colonnade --traversal cull --frames 2
+
+The program's spans and counters live here too. `span(name)` is a
+profiler range while a profiler records and a shared no-op context
+otherwise, so with tracing off a span costs one flag test. Spans of a
+frame nest by time on the host thread that issues it: the pass ranges
+(pipeline.PASS_NAMES) lie in the session's `session.queue` span, and the
+spans inside a pass (`gi.feedback_fetch`, `ray_sort`) in its range.
+`count(name, value)` adds a host int or a 0-d device tensor to a
+process-wide registry while a profiler records, without a sync;
+`counters()` reads every counter to the host with one sync a device, and
+`reset_counters()` empties the registry. Counters: `rays.<set>` and
+`live_rays.<set>` (tmax >= tmin) of the sets `primary`, `shadow`,
+`bounce` and `nee` (`count_rays`, at the trace calls of render.passes),
+and K7's `bvh.rays`, `bvh.box_tests` and `bvh.tri_tests` (ops.bvh, from
+its counting build; the plain walk on the CPU counts nothing).
 """
 
 from __future__ import annotations
@@ -31,14 +46,73 @@ import json
 import os
 import tempfile
 import time
-from contextlib import contextmanager
-from typing import Dict
+from contextlib import contextmanager, nullcontext
+from typing import Dict, List
 
 import torch
 
-from .pipeline import PASS_NAMES as RANGE_NAMES
-
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+_OFF = nullcontext()  # the span of every name while no profiler records
+_HOST_COUNTS: Dict[str, int] = {}
+_DEVICE_COUNTS: Dict[str, List[torch.Tensor]] = {}
+
+
+def recording() -> bool:
+    """True while a torch.profiler records in this process."""
+    return torch.autograd._profiler_enabled()
+
+
+def span(name: str):
+    """A profiler range named `name` while a profiler records, else a
+    shared no-op context (one flag test)."""
+    return torch.profiler.record_function(name) if recording() else _OFF
+
+
+def count(name: str, value):
+    """Add `value`, a host int or a 0-d integer tensor on any device, to the
+    counter `name` while a profiler records. Never syncs: a device value is
+    kept as it is and summed at the read."""
+    if not recording():
+        return
+    if isinstance(value, torch.Tensor):
+        _DEVICE_COUNTS.setdefault(name, []).append(value)
+    else:
+        _HOST_COUNTS[name] = _HOST_COUNTS.get(name, 0) + int(value)
+
+
+def count_rays(ray_set: str, n: int, tmin: float, tmax):
+    """`rays.<ray_set>` (n, the rays submitted) and `live_rays.<ray_set>`
+    (those with tmax >= tmin; tmax a float or [n]) while a profiler records."""
+    if not recording():
+        return
+    count(f"rays.{ray_set}", n)
+    if isinstance(tmax, torch.Tensor):
+        count(f"live_rays.{ray_set}", (tmax >= tmin).sum())
+    else:
+        count(f"live_rays.{ray_set}", n if tmax >= tmin else 0)
+
+
+def counters() -> Dict[str, int]:
+    """Every counter's total as a host int: one sum and one copy to the host
+    (the sync) a device that holds counts."""
+    out = dict(_HOST_COUNTS)
+    by_device: Dict[torch.device, Dict[str, List[torch.Tensor]]] = {}
+    for name, values in _DEVICE_COUNTS.items():
+        for v in values:
+            by_device.setdefault(v.device, {}).setdefault(name, []).append(
+                v.reshape(()).to(torch.int64))
+    for names in by_device.values():
+        totals = torch.stack([torch.stack(vs).sum() for vs in names.values()]).tolist()
+        for name, total in zip(names, totals):
+            out[name] = out.get(name, 0) + int(total)
+    return out
+
+
+def reset_counters():
+    _HOST_COUNTS.clear()
+    _DEVICE_COUNTS.clear()
+
 
 # The reference's pass timers (raytracing_system.cpp:1024-1559), as the JAX
 # package's profiling.PASS_NAMES; a table also has "whole frame".
@@ -131,6 +205,8 @@ def summarize_trace(events, frames: int, wall_ms: float, top: int = 15) -> dict:
     """Per-frame device times from the `traceEvents` of a chrome trace:
     busy ms, idle share against `wall_ms`, ms per pass, and the `top`
     kernels by total time with their launches per frame."""
+    from .pipeline import PASS_NAMES as RANGE_NAMES
+
     spans = [e for e in events if e.get("ph") == "X"]
     device = [e for e in spans if e.get("cat") in DEVICE_CATEGORIES]
     ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in spans

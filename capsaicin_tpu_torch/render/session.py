@@ -30,6 +30,7 @@ from ..ops.camera import Camera, camera_to, default_camera
 from ..parallel import sharding as sh
 from ..scene import textures
 from . import pipeline, shading
+from .profiling import span
 from .settings import RenderOptions, Settings, default_settings
 from .traversal import (build_accel, make_bounce_fns, make_stream_bounce_fns, make_traversal,
                         resolve_mode, with_ray_sorting, with_ray_sorting_any)
@@ -340,7 +341,8 @@ class RenderSession:
             raise RuntimeError("set_scene() first")
         if camera is not None:
             self.set_camera(camera)
-        display, self.state = self.frame()
+        with span("session.queue"):  # the host issuing the frame's launches
+            display, self.state = self.frame()
         return display
 
     def render_loop(self, frames: int, camera: Optional[Camera] = None, chunk: int = 16,
@@ -374,7 +376,8 @@ class RenderSession:
         display = self.render_async(camera)
         self._synchronize()
         self._timings["frame"] = time.perf_counter() - t0
-        return display.cpu().numpy()
+        with span("session.readback"):
+            return display.cpu().numpy()
 
     @property
     def devices(self) -> List[torch.device]:

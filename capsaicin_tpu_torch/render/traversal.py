@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import brute, bvh, cull, static, stream, wavefront
+from .profiling import span
 
 
 def resolve_mode(mode: str, num_triangles: int) -> str:
@@ -90,11 +91,14 @@ def make_traversal(mode: str, accel, pixels=None):
 
 
 def _sorted_inputs(origins, dirs, tmin, tmax, dir_grid):
+    """The rays in coherence-sorted order (key sort and permutation, under
+    the span `ray_sort`), and the inverse permutation."""
     n = origins.shape[0]
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=origins.device).expand(n)
-    order, inverse = bvh.sort_rays_for_traversal(origins, dirs, dead=tmax < tmin,
-                                                 dir_grid=dir_grid)
-    return origins[order], dirs[order], tmax[order], inverse
+    with span("ray_sort"):
+        tmax = torch.as_tensor(tmax, dtype=torch.float32, device=origins.device).expand(n)
+        order, inverse = bvh.sort_rays_for_traversal(origins, dirs, dead=tmax < tmin,
+                                                     dir_grid=dir_grid)
+        return origins[order], dirs[order], tmax[order], inverse
 
 
 def with_ray_sorting(closest_fn, dir_grid: int = 0):
@@ -105,7 +109,9 @@ def with_ray_sorting(closest_fn, dir_grid: int = 0):
 
     def sorted_closest(origins, dirs, tmin, tmax):
         o, d, tm, inverse = _sorted_inputs(origins, dirs, tmin, tmax, dir_grid)
-        return {k: x[inverse] for k, x in closest_fn(o, d, tmin, tm).items()}
+        hit = closest_fn(o, d, tmin, tm)
+        with span("ray_sort"):
+            return {k: x[inverse] for k, x in hit.items()}
 
     return sorted_closest
 
@@ -115,7 +121,9 @@ def with_ray_sorting_any(any_fn, dir_grid: int = 0):
 
     def sorted_any(origins, dirs, tmin, tmax):
         o, d, tm, inverse = _sorted_inputs(origins, dirs, tmin, tmax, dir_grid)
-        return any_fn(o, d, tmin, tm)[inverse]
+        hit = any_fn(o, d, tmin, tm)
+        with span("ray_sort"):
+            return hit[inverse]
 
     return sorted_any
 

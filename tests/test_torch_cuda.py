@@ -10,9 +10,14 @@ least 8 and zero normals). K1 is held bit-equal to its plain version with
 are held to hit ids equal except at equal t (rtol 1e-4) or on triangle
 edges, t/u/v within 1e-5 where the ids agree, and K7 also bit-equal to
 its own walk's plain version (the ordered walk), on a persistent grid's
-edges too; K8 also bit-equal to its plain version over several tiles of
-triangles; the walk benchmark (K9) exactly, at 50 and at 4096 steps; the stream traversal (K10, K11), which pops blocks in the order
-of its plain version, to hit ids and counts equal and t/u/v within 1e-5;
+edges too; K7's counting build (taken while a profiler records) bit-equal
+to its plain build, its ray and triangle test counts the same in pixel and
+in sorted order and equal to its four-wide walk's (ops.traverse.wide_walk),
+and all three counts equal to a hand count on a scene of a few leaves; a
+traced frame free of host syncs too; K8 also bit-equal to its plain
+version over several tiles of triangles; the walk benchmark (K9) exactly,
+at 50 and at 4096 steps; the stream traversal (K10, K11), which pops
+blocks in the order of its plain version, to hit ids and counts equal and t/u/v within 1e-5;
 K11 also on the edges of its grouping of sub-packets. K6 also on images
 smaller than its tile and on the tap's edge cases. A mesh session of 2 or
 8 x cuda:0 (parallel.sharding) bit-equal to the unsharded session through
@@ -38,6 +43,7 @@ import torch
 from capsaicin_tpu_torch import kernels
 from capsaicin_tpu_torch.ops import brute, bvh, lookup, static, stencil, stream, traverse
 from capsaicin_tpu_torch.ops import camera as cam
+from capsaicin_tpu_torch.render import profiling
 from capsaicin_tpu_torch.render.session import RenderSession
 from capsaicin_tpu_torch.render.settings import RenderOptions, default_settings
 from capsaicin_tpu_torch.scene import build_scene
@@ -537,6 +543,135 @@ def test_bvh_kernel_persistent_grid_edges(dev, case):
             assert int((got[3] >= 0).sum()) > n // 4
     info = bvh.kernel_info(dev.index or 0, False, accel.depth)
     assert info["local_bytes"] == 0 and info["warps_per_sm"] >= 8, info
+
+
+def _counted(fn):
+    """fn() while a CPU torch.profiler records, so K7 takes its counting
+    build; returns (fn's result, K7's counters)."""
+    profiling.reset_counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fn()
+    counts = profiling.counters()
+    profiling.reset_counters()
+    return out, {k: counts.get(k, 0) for k in bvh.COUNTERS}
+
+
+def _colonnade_bvh(dev):
+    host = build_scene(colonnade(target_tris=20_000))
+    return bvh.build_bvh(np.stack([host.tri_v0, host.tri_v1, host.tri_v2], 1), device=dev)
+
+
+def test_bvh_counting_build_changes_no_result(dev):
+    """K7's counting build gives its plain build's hits bit for bit, in
+    pixel order and as 8x4 tiles; both builds spill nothing."""
+    accel = _colonnade_bvh(dev)
+    o, d, tmax = _hall_rays(dev, 4096, 11)
+    for any_hit, tmin in ((False, 0.0), (True, 1e-4)):
+        for width in (0, 64):
+            plain = bvh.bvh_trace(accel, o, d, tmin, tmax, any_hit, width)
+            counted, counts = _counted(lambda: bvh.bvh_trace(accel, o, d, tmin, tmax, any_hit,
+                                                             width))
+            assert counts["bvh.rays"] == int((tmax >= tmin).sum()) and counts["bvh.tri_tests"] > 0
+            if any_hit:
+                assert torch.equal(plain, counted)
+            else:
+                assert all(torch.equal(a, b) for a, b in zip(plain, counted))
+        for counting in (False, True):
+            info = bvh.kernel_info(dev.index or 0, any_hit, accel.depth, counting)
+            assert info["local_bytes"] == 0, info
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(scene="colonnade")], ids=["cornell", "colonnade"])
+def test_traced_frames_never_wait_for_the_device(dev, kw):
+    """While a profiler records, the spans and the counters (the live-ray
+    sums and K7's counting build) add no call that synchronises with the
+    device; the counters are read after the frames."""
+    s = _session(64, 48, dev, **kw)
+    s.render_async()
+    torch.cuda.synchronize()
+    profiling.reset_counters()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                s.render_async()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    counts = profiling.counters()
+    profiling.reset_counters()
+    assert counts["rays.primary"] == counts["live_rays.primary"] == 3 * 64 * 48
+    assert 0 < counts["live_rays.bounce"] < counts["rays.bounce"] == 3 * 64 * 48
+    assert (counts.get("bvh.rays", 0) > 0) == bool(kw)
+
+
+@pytest.mark.parametrize("rays", ["hall", "primary"])
+def test_bvh_counts_in_pixel_and_sorted_order(dev, rays):
+    """The counting build's totals on one set of rays, as given (the
+    primary rays of a 64x48 frame as 8x4 tiles) and coherence-sorted: the
+    rays walked (the live ones) and the triangle tests are the same, and
+    equal to the four-wide walk's; the box tests are at least the walk's
+    (a lane that holds a leaf walks on beside the warp's other lanes)."""
+    accel = _colonnade_bvh(dev)
+    if rays == "hall":
+        o, d, tmax = _hall_rays(dev, 4096, 12)
+        width = 0
+    else:
+        camera = cam.camera_to(make_camera("colonnade", 64, 48), dev)
+        o, d = cam.create_primary_rays(camera, cam.pixel_grid(64, 48, dev), (64, 48), 0)
+        o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+        tmax = torch.full((o.shape[0],), 1e6, device=dev)
+        width = 64
+    order, _ = bvh.sort_rays_for_traversal(o, d, dead=tmax < 0)
+    records = accel.wide.cpu()
+    for any_hit, tmin in ((False, 0.0), (True, 1e-4)):
+        walk = traverse.wide_walk(records, accel.host, o.cpu(), d.cpu(), tmin, tmax.cpu(),
+                                  any_hit, counts=True)
+        _, given = _counted(lambda: bvh.bvh_trace(accel, o, d, tmin, tmax, any_hit, width))
+        _, sorted_ = _counted(lambda: bvh.bvh_trace(accel, o[order], d[order], tmin,
+                                                    tmax[order], any_hit))
+        for counts in (given, sorted_):
+            assert counts["bvh.rays"] == int((tmax >= tmin).sum()), (rays, any_hit)
+            assert counts["bvh.tri_tests"] == int(walk["tris"].sum()), (rays, any_hit)
+            assert counts["bvh.box_tests"] >= int(walk["boxes"].sum()), (rays, any_hit)
+
+
+def test_bvh_counts_match_a_hand_count(dev):
+    """Sixteen triangles across x at x = -15, -13, ..., 15, each in its
+    plane x = c with y in [-1, 1] and z in [4, 6], two a leaf: eight
+    leaves, depth 3, one four-wide root record over four two-wide records
+    of two leaves. Each ray launches alone (a warp of one lane holds no
+    leaf while it walks). Along +x from x = -20:
+    - through the triangles: the root's 4 boxes, the first record's 2, its
+      first leaf's 2 triangles (the hit at t = 5); the next leaf's box is
+      entered at t = 9 > 5 and dropped: 6 box tests, 2 triangle tests (1
+      for an any-hit ray, which stops at the first hit);
+    - through every box, past every triangle (y = 0.9, z = 4.2): 4 + 4 x 2
+      box tests, all 16 triangles;
+    along +y from (0, 5, 5), past every box: the root's 4; a dead ray
+    (tmax < tmin): nothing."""
+    c = np.arange(16, dtype=np.float32) * 2 - 15
+    ones = np.ones(16, np.float32)
+    tris = np.stack([np.stack([c, -ones, 4 * ones], 1), np.stack([c, -ones, 6 * ones], 1),
+                     np.stack([c, ones, 5 * ones], 1)], 1)
+    accel = bvh.build_bvh(tris, 2, device=dev)
+    assert (accel.n_leaves, accel.depth, accel.n_wide) == (8, 3, 5)
+    rays = [((-20, -0.5, 5), (1, 0, 0), 1e6), ((-20, 0.9, 4.2), (1, 0, 0), 1e6),
+            ((0, 5, 5), (0, 1, 0), 1e6), ((-20, -0.5, 5), (1, 0, 0), -1.0)]
+    want = {False: [(1, 6, 2), (1, 12, 16), (1, 4, 0), (0, 0, 0)],
+            True: [(1, 6, 1), (1, 12, 16), (1, 4, 0), (0, 0, 0)]}
+    for any_hit, tmin in ((False, 0.0), (True, 1e-4)):
+        for (o, d, tmax), expect in zip(rays, want[any_hit]):
+            o, d = (torch.tensor([x], dtype=torch.float32, device=dev) for x in (o, d))
+            tmax = torch.tensor([tmax], dtype=torch.float32, device=dev)
+            out, counts = _counted(lambda: bvh.bvh_trace(accel, o, d, tmin, tmax, any_hit))
+            assert tuple(counts[k] for k in bvh.COUNTERS) == expect, (o, d, any_hit)
+            walk = traverse.wide_walk(accel.wide.cpu(), accel.host, o.cpu(), d.cpu(), tmin,
+                                      tmax.cpu(), any_hit, counts=True)
+            assert (int(walk["boxes"].sum()), int(walk["tris"].sum())) == expect[1:]
+            if not any_hit and expect == (1, 6, 2):
+                assert int(out[3][0]) == 0 and float(out[0][0]) == 5.0
 
 
 def test_hit_attributes_large_table(dev):

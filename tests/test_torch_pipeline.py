@@ -237,7 +237,9 @@ def test_session_needs_cuda_by_default(monkeypatch):
 
 def test_frame_opens_a_profiler_range_per_pass(tmp_path):
     """The ranges render.profiling attributes kernels to: one
-    user_annotation span per pass in the exported trace."""
+    user_annotation span per pass in the exported trace, in the pass
+    order, among the program's other spans (session.queue around them,
+    gi.feedback_fetch inside indirect_gi)."""
     from capsaicin_tpu_torch.render.profiling import profile_frames
 
     session = RenderSession(16, 16, device="cpu")
@@ -248,7 +250,7 @@ def test_frame_opens_a_profiler_range_per_pass(tmp_path):
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
-    assert spans == list(tpipe.PASS_NAMES)
+    assert [name for name in spans if name in tpipe.PASS_NAMES] == list(tpipe.PASS_NAMES)
     with pytest.raises(ValueError):  # device time needs a CUDA session
         profile_frames(session)
 
