@@ -15,6 +15,12 @@ def uv_to_xy(uv, dims):
     return torch.minimum(uv * const((w, h), uv.device), const((w - 1, h - 1), uv.device))
 
 
+def pixel_index(x, lo: int, hi: int):
+    """Float pixel coordinates -> int64 indices clamped to [lo, hi]. Clamping
+    before the conversion keeps far-off (and NaN) coordinates defined."""
+    return torch.nan_to_num(x, nan=float(lo)).clamp(lo, hi).long()
+
+
 def _gather_pixels(img, ix, iy):
     """img: [H,W,C]; ix, iy: [...] integer -> [...,C], indices clamped."""
     h, w = img.shape[0], img.shape[1]

@@ -9,7 +9,10 @@ versions on the full colonnade's 1080p rays (K7 bit-equal to its walk's
 plain versions, its bound counted from the ordered walk) and K10 to K7 on
 all of them (K10 also at blocks of 8: 32,768 blocks), times K8 on the
 colonnade's subsamples beside its bound, runs the walk microbenchmark (K9,
-its out exactly the plain walk's at 40 and 4096 steps), renders the
+its out exactly the plain walk's at 40 and 4096 steps), holds the
+feedback fetch (K12) bit-equal to its plain version on every lane of the
+bounce hits of 1080p offline64 frames (the Cornell box and the colonnade,
+16 launches a frame) and times it with the L2 flushed, renders the
 Cornell box at 1920x1080 with default options through the session API and
 checks that the frame went through every kernel, renders the other
 configurations of bench.py the same way (the colonnade through the BVH
@@ -90,6 +93,17 @@ TAP_OPS = {"eaw_disocclusion": 24, "eaw_stage": 24, "spatial_gather": 20, "eaw_p
 MUFU_TAP = 2
 MUFU_PIXEL = {"eaw_disocclusion": 2, "eaw_stage": 4, "spatial_gather": 2, "eaw_pair": 8}
 OPS_MICROSTEP = 25  # K9: a box test and the step's arithmetic
+# K12, a lane: the reprojection (dot products, the normalisations, the
+# plane intersection, uv and xy) 70, the bilinear blend 21, the indices,
+# weights and depth test 19; MUFU: 10 divisions and 2 sqrt (a reciprocal or
+# root each). Bytes: the hit in, colour and flag out, and each history
+# pixel a corner reads (12 B) and each depth a point fetch reads (4 B) once.
+OPS_FETCH = 110
+MUFU_FETCH = 12
+FETCH_LANE_BYTES = 25
+FETCH_SETS = (("cornell", "auto"), ("colonnade", "bvh"))  # offline64's scenes
+FETCH_OPTIONS = dict(num_diffuse_bounces=4, spp=4)  # offline64's frame: 16 fetches
+FLUSH_BYTES = 64 << 20  # larger than the H100's 50 MB L2
 # K10/K11: interval slab test of one block box against a sub-packet's
 # bounds, counted as the least work that gives the plain version's answer
 # for the boxes the stream build makes (faces ordered): per axis one
@@ -114,22 +128,24 @@ SPATIAL_VARIANCE_THRESHOLD = 8.0  # K3 blurs a pixel whose history is shorter
 
 # Per-frame launches of the flagship frame (gi1080, default options)
 FLAGSHIP_LAUNCHES = {"static_trace": 4, "hit_attributes": 3, "spatial_gather": 1,
-                     "eaw_disocclusion": 1, "eaw_stage": 4, "eaw_pair": 0}
+                     "eaw_disocclusion": 1, "eaw_stage": 4, "eaw_pair": 0, "feedback_fetch": 1}
 # The other Cornell configurations of bench.py:113-160, as (name, size and
 # options, frames timed, per-frame launches each fixes)
 DIRECT512 = dict(width=512, height=512, options=dict(
     num_diffuse_bounces=0, output=1, taa=False, denoise=False, gather=False))
 DIRECT512_LAUNCHES = dict(static_trace=2, hit_attributes=2, spatial_gather=0,
-                          eaw_disocclusion=0, eaw_stage=0, eaw_pair=0)
+                          eaw_disocclusion=0, eaw_stage=0, eaw_pair=0, feedback_fetch=0)
 PROGRESSIVE = dict(width=1024, height=1024, options=dict(lowres_indirect=True))
 TEXTURED = dict(width=1024, height=1024, scene="textured")
 CONFIGS = [
     ("direct512", DIRECT512, 8, DIRECT512_LAUNCHES),
     ("direct512_loop16", dict(DIRECT512, loop=16), 16, DIRECT512_LAUNCHES),
     ("gi1080x4", dict(width=W, height=H, options=dict(num_diffuse_bounces=4)), 8,
-     dict(static_trace=10, hit_attributes=6, spatial_gather=1, eaw_stage=4, eaw_pair=0)),
+     dict(static_trace=10, hit_attributes=6, spatial_gather=1, eaw_stage=4, eaw_pair=0,
+          feedback_fetch=4)),
     ("gi1080x4_spp64", dict(width=W, height=H, options=dict(num_diffuse_bounces=4, spp=64)), 4,
-     dict(static_trace=514, hit_attributes=321, spatial_gather=1, eaw_stage=4)),
+     dict(static_trace=514, hit_attributes=321, spatial_gather=1, eaw_stage=4,
+          feedback_fetch=256)),
     ("progressive", PROGRESSIVE, 8,
      dict(static_trace=4, hit_attributes=3, spatial_gather=1, eaw_stage=4)),
     ("progressive_loop16", dict(PROGRESSIVE, loop=16), 16,
@@ -1142,6 +1158,124 @@ def compare_microstep(report):
     return launches
 
 
+def cold_ms(fn, iters):
+    """Device ms of one call of `fn` with the L2 cache flushed before it
+    (a 64 MB write between calls, outside the events): the mean of `iters`
+    calls after a warm-up."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / iters
+
+
+def fetch_reads(p, camera, width, height):
+    """(history pixels the four bilinear corners read, depths the point
+    fetch reads): the distinct pixels of feedback_fetch_plain's indices."""
+    import torch
+
+    from capsaicin_tpu_torch.ops import camera as cam
+    from capsaicin_tpu_torch.ops import resample
+
+    xy = resample.uv_to_xy(cam.calculate_image_plane_uv(camera, p), (width, height))
+    fl = torch.floor(xy - 0.5)
+    bx = resample.pixel_index(fl[:, 0], -1, width - 1).clamp_min(0)
+    by = resample.pixel_index(fl[:, 1], -1, height - 1).clamp_min(0)
+    x1, y1 = (bx + 1) % width, (by + 1) % height
+    corners = torch.cat([by * width + bx, by * width + x1, y1 * width + bx, y1 * width + x1])
+    pl = torch.floor(xy)
+    point = (resample.pixel_index(pl[:, 1], 0, height - 1) * width
+             + resample.pixel_index(pl[:, 0], 0, width - 1))
+    return int(torch.unique(corners).numel()), int(torch.unique(point).numel())
+
+
+def compare_feedback(report):
+    """K12 on the feedback fetches of an offline64 frame (1920x1080, 4
+    bounces, spp 4: 16 fetches) of the Cornell box and of the full
+    colonnade through the BVH, the third after a reset: its launches 16 a
+    frame; on the fetches of spp sample 0 (bounces 1-4) bit-equal to its
+    plain version on every lane, timed with the L2 flushed (and warm) beside
+    its bound and the plain (eager) fetch's time; its build."""
+    import torch
+
+    from capsaicin_tpu_torch.ops import feedback
+
+    real = feedback.feedback_fetch
+    per_set = {}
+    per_frame = FETCH_OPTIONS["num_diffuse_bounces"] * FETCH_OPTIONS["spp"]
+    for scene, traversal in FETCH_SETS:
+        session = make_session(W, H, "cuda", options=FETCH_OPTIONS, scene=scene,
+                               traversal=traversal)
+        for _ in range(2):
+            session.render_async()
+        calls = []
+
+        def record(p, *rest):
+            if len(calls) < FETCH_OPTIONS["num_diffuse_bounces"]:
+                calls.append((p.clone(),) + rest)
+            return real(p, *rest)
+
+        torch.cuda.synchronize()
+        before = feedback.K12.launches
+        feedback.feedback_fetch = record  # passes.indirect_gi calls it through the module
+        try:
+            session.render_async()
+            torch.cuda.synchronize()
+        finally:
+            feedback.feedback_fetch = real
+        launches = feedback.K12.launches - before
+        check(launches == per_frame, f"K12: {launches} launches in an offline64 frame ({scene}), "
+                                     f"expected {per_frame}")
+        del session
+        for bounce, args in enumerate(calls, 1):
+            p, camera = args[0], args[1]
+            n = p.shape[0]
+            got = feedback.feedback_fetch(*args)
+            want = feedback.feedback_fetch_plain(*args)
+            bad = ((got[0].view(torch.int32) != want[0].view(torch.int32)).any(-1)
+                   | (got[1] != want[1]))
+            mismatches = int(bad.sum())
+            pixels, depths = fetch_reads(p, camera, W, H)
+            entry = dict(
+                lanes=n, mismatches=mismatches, disoccluded=int(got[1].sum()),
+                history_pixels=pixels, depth_pixels=depths,
+                ms=cold_ms(lambda: feedback.feedback_fetch(*args), 20),
+                warm_ms=cuda_ms(lambda: feedback.feedback_fetch(*args), 20),
+                plain_ms=cuda_ms(lambda: feedback.feedback_fetch_plain(*args), 3),
+                **bound(n * OPS_FETCH, n * FETCH_LANE_BYTES + pixels * 12 + depths * 4,
+                        n * MUFU_FETCH))
+            per_set[f"{scene}_bounce{bounce}"] = entry
+            print(f"K12 {scene} bounce {bounce}: {n} lanes, {entry['disoccluded']} disoccluded, "
+                  f"{pixels} history pixels read; mismatches against its plain version "
+                  f"{mismatches}; {entry['ms']:.4f} ms cold, {entry['warm_ms']:.4f} warm (plain "
+                  f"{entry['plain_ms']:.4f} ms), bound {entry['bound_ms']:.4f} ms "
+                  f"({entry['bound_term']})")
+            check(mismatches == 0, f"K12 {scene} bounce {bounce}: {mismatches} lanes differ "
+                                   "from its plain version")
+            check(entry["ms"] >= 0.95 * entry["bound_ms"],
+                  f"K12 {scene} bounce {bounce}: {entry['ms']} ms below 95% of its bound "
+                  f"{entry['bound_ms']} ms")
+        del calls
+    info = feedback.kernel_info(torch.cuda.current_device())
+    print(f"K12 build: {info['registers']} registers a thread, {info['local_bytes']} B local, "
+          f"{info['shared_bytes']} B shared a block, {info['ctas_per_sm']} blocks = "
+          f"{info['warps_per_sm']} warps resident an SM")
+    check(info["local_bytes"] == 0, f"K12 uses {info['local_bytes']} B of local memory")
+    mean = lambda key: sum(e[key] for e in per_set.values()) / len(per_set)  # noqa: E731
+    report["feedback_fetch"] = dict(
+        max_abs_err=0.0, ms=mean("ms"), warm_ms=mean("warm_ms"), plain_ms=mean("plain_ms"),
+        bound_ms=mean("bound_ms"), bound_by="bytes", library_ms=None, build=info,
+        per_set=per_set)
+
+
 def run_config(name, cfg, frames, per_frame):
     """One Cornell configuration through the session API: a warm-up frame,
     then `frames` frames (render_loop with accumulate for a loop config)
@@ -1186,7 +1320,7 @@ def variant_launches(o) -> dict:
     b = o.num_diffuse_bounces
     return dict(static_trace=2 + 2 * b, hit_attributes=2 + b, spatial_gather=int(o.gather),
                 eaw_disocclusion=int(o.denoise), eaw_stage=(4 if o.eaw5 else 2) * int(o.denoise),
-                eaw_pair=0, bvh_trace=0)
+                eaw_pair=0, bvh_trace=0, feedback_fetch=b * int(o.gbuffer_feedback))
 
 
 def ingest_phase(tmp, smi):
@@ -1695,8 +1829,9 @@ def main() -> int:
     import numpy as np
 
     from capsaicin_tpu_torch import kernels as K
-    # importing registers the kernels: K1, K2, K3-K6, K7, K8, K10, K11, K9
+    # importing registers the kernels: K1, K2, K3-K6, K7, K8, K10, K11, K9, K12
     from capsaicin_tpu_torch.ops import static  # noqa: F401
+    from capsaicin_tpu_torch.ops import feedback  # noqa: F401
     from capsaicin_tpu_torch.ops import lookup, stencil  # noqa: F401
     from capsaicin_tpu_torch.ops import bvh, brute, stream  # noqa: F401
     from capsaicin_tpu_torch.tools import microstep  # noqa: F401
@@ -1731,6 +1866,7 @@ def main() -> int:
     compare_stream(report, calls, tris, tree7)
     del calls, tris, tree7
     microstep_launches = compare_microstep(report)
+    compare_feedback(report)
 
     # 4. the flagship, gi1080 with default options, through the session
     # API, counting launches; then PR 1's gather=False path, shortly
@@ -1815,7 +1951,7 @@ def main() -> int:
              **report[k.name])
         for k in K.REGISTRY
     ]
-    check(len(kernels) == 11, f"{len(kernels)} kernels registered, expected 11")
+    check(len(kernels) == 12, f"{len(kernels)} kernels registered, expected 12")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for k in kernels:

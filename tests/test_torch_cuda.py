@@ -18,7 +18,10 @@ traced frame free of host syncs too; K8 also bit-equal to its plain
 version over several tiles of triangles; the walk benchmark (K9) exactly,
 at 50 and at 4096 steps; the stream traversal (K10, K11), which pops
 blocks in the order of its plain version, to hit ids and counts equal and t/u/v within 1e-5;
-K11 also on the edges of its grouping of sub-packets. K6 also on images
+K11 also on the edges of its grouping of sub-packets. The feedback fetch
+(K12) bit-equal to its plain version on every lane of 1080p bounce hits
+(Cornell, the colonnade, lowres_indirect) and on hand-made edge lanes,
+and refusing a wrong dtype, shape or device. K6 also on images
 smaller than its tile and on the tap's edge cases. A mesh session of 2 or
 8 x cuda:0 (parallel.sharding) bit-equal to the unsharded session through
 K1 and K7 (the stream within display RMSE 1e-3: its bounce sub-packets
@@ -41,7 +44,7 @@ import pytest
 import torch
 
 from capsaicin_tpu_torch import kernels
-from capsaicin_tpu_torch.ops import brute, bvh, lookup, static, stencil, stream, traverse
+from capsaicin_tpu_torch.ops import brute, bvh, feedback, lookup, static, stencil, stream, traverse
 from capsaicin_tpu_torch.ops import camera as cam
 from capsaicin_tpu_torch.render import profiling
 from capsaicin_tpu_torch.render.session import RenderSession
@@ -49,6 +52,7 @@ from capsaicin_tpu_torch.render.settings import RenderOptions, default_settings
 from capsaicin_tpu_torch.scene import build_scene
 from capsaicin_tpu_torch.scene.procedural import colonnade, cornell_box, make_camera
 from capsaicin_tpu_torch.tools import microstep
+from test_torch_feedback import _case as _fetch_case
 from torch_threads import share_cores
 
 share_cores()
@@ -329,13 +333,13 @@ def test_eaw_pair_and_bf16_kernels(dev, strides):
 
 @pytest.mark.parametrize("kw, per_frame", [
     (dict(), dict(static_trace=4, hit_attributes=3, spatial_gather=1, eaw_disocclusion=1,
-                  eaw_stage=4, eaw_pair=0)),
+                  eaw_stage=4, eaw_pair=0, feedback_fetch=1)),
     (dict(eaw_fused="1"), dict(eaw_stage=0, eaw_pair=2)),
     (dict(eaw_fused="13", eaw_bf16=True), dict(eaw_stage=2, eaw_pair=1, spatial_gather=1)),
     (dict(lowres_indirect=True, spp=2), dict(static_trace=6, hit_attributes=5,
-                                              spatial_gather=1)),
+                                              spatial_gather=1, feedback_fetch=2)),
     (dict(scene="colonnade"), dict(bvh_trace=4, hit_attributes=3, static_trace=0,
-                                   brute_trace=0)),
+                                   brute_trace=0, feedback_fetch=1)),
     (dict(traversal="brute"), dict(brute_trace=4, static_trace=0, bvh_trace=0)),
     (dict(scene="colonnade", traversal="stream"), dict(stream_trace=4, stream_count=1,
                                                       bvh_trace=0, hit_attributes=3)),
@@ -690,6 +694,83 @@ def test_hit_attributes_large_table(dev):
     want = lookup.hit_attributes_plain(table, prim, u, v)
     for key in want:
         torch.testing.assert_close(got[key], want[key], rtol=1e-6, atol=1e-6)
+
+
+def _fetch_equal(got, want, what):
+    """K12's (hist, disocc) bit for bit against the plain version's."""
+    bad = (got[0].view(torch.int32) != want[0].view(torch.int32)).any(-1) | (got[1] != want[1])
+    lanes = bad.nonzero().flatten()[:5].tolist()
+    assert not lanes, (what, int(bad.sum()), lanes)
+
+
+def _fetch_calls(dev, monkeypatch, scene, **kw):
+    """The inputs of the feedback fetches of a 1920x1080 frame's bounces 1
+    and 2, in the third frame after a reset (a rendered history), the
+    camera turned a little from the frame before."""
+    real = feedback.feedback_fetch
+    calls = []
+
+    def record(p, prev_camera, history, depth, width, height):
+        calls.append((p.clone(), prev_camera, history.clone(), depth.clone(), width, height))
+        return real(p, prev_camera, history, depth, width, height)
+
+    s = _session(1920, 1080, dev, scene=scene, num_diffuse_bounces=2, **kw)
+    for _ in range(2):
+        s.render_async()
+    s.set_camera(cam.tilted(s.camera, 40))
+    with monkeypatch.context() as patch:
+        patch.setattr(feedback, "feedback_fetch", record)  # indirect_gi's call
+        s.render_async()
+    torch.cuda.synchronize()
+    assert len(calls) == 2
+    return calls
+
+
+@pytest.mark.parametrize("scene, kw", [("cornell", {}), ("colonnade", {}),
+                                       ("cornell", dict(lowres_indirect=True))],
+                         ids=["cornell", "colonnade", "cornell_lowres"])
+def test_feedback_fetch_kernel_on_1080p_bounces(dev, monkeypatch, scene, kw):
+    """K12 bit-equal to its plain version on every lane of the bounce hits
+    of a 1080p frame (every lane: the dead ones too), one launch a fetch;
+    under lowres_indirect its 960x540 lanes read the whole history."""
+    n = 960 * 540 if kw else 1920 * 1080
+    for bounce, args in enumerate(_fetch_calls(dev, monkeypatch, scene, **kw), 1):
+        assert args[0].shape == (n, 3) and args[2].shape == (1080, 1920, 3)
+        before = feedback.K12.launches
+        got = feedback.feedback_fetch(*args)
+        assert feedback.K12.launches == before + 1
+        _fetch_equal(got, feedback.feedback_fetch_plain(*args), (scene, bounce))
+
+
+@pytest.mark.parametrize("width, height", [(16, 9), (1, 5), (7, 1), (1, 1)],
+                         ids=["16x9", "one_pixel_wide", "one_pixel_tall", "one_pixel"])
+def test_feedback_fetch_kernel_edge_lanes(dev, width, height):
+    """K12 on the CPU tests' hand-made edge lanes (tests/test_torch_feedback.py):
+    the -1 corners, x = W-1 and y = H-1, offscreen and NaN uv, an fp16
+    overflow under a zero weight, one-pixel images."""
+    p, camera, history, depth = _fetch_case(width, height)
+    args = (p.to(dev), cam.camera_to(camera, dev), history.to(dev), depth.to(dev), width, height)
+    _fetch_equal(feedback.feedback_fetch(*args), feedback.feedback_fetch_plain(*args),
+                 (width, height))
+
+
+def test_feedback_fetch_kernel_refuses_wrong_inputs(dev):
+    p, camera, history, depth = _fetch_case(16, 9)
+    p, camera, history, depth = p.to(dev), cam.camera_to(camera, dev), history.to(dev), depth.to(dev)
+    feedback.feedback_fetch(p, camera, history, depth, 16, 9)
+    for args, match in (
+        ((p.double(), camera, history, depth, 16, 9), "dtype"),
+        ((p[:, :2].contiguous(), camera, history, depth, 16, 9), "shape"),
+        ((p, camera, history, depth, 17, 9), "shape"),
+        ((p, camera, torch.cat([history, history[..., :1]], -1), depth, 16, 9), "shape"),
+        ((p, camera, history, depth.half(), 16, 9), "dtype"),
+        ((p, camera, history, depth.cpu(), 16, 9), "CUDA tensor"),
+        ((p, camera._replace(position=camera.position.cpu()), history, depth, 16, 9),
+         "CUDA tensor"),
+        ((p, camera._replace(up=camera.up.double()), history, depth, 16, 9), "dtype"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            feedback.feedback_fetch(*args)
 
 
 @pytest.mark.parametrize("variant", microstep.VARIANTS)
